@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port (waldo_tpu_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--iters N] [--out results.json]
+
+Phases, in order; any failure exits non-zero:
+  1. device: requires CUDA, prints the card's name and power limit and the
+     TF32 settings (both set off: the checks below are float32);
+  2. build: compiles every CUDA kernel of the port from its sources;
+  3. kernels: each kernel against its plain PyTorch version on the card, at
+     the flagship predict shapes and at ragged small shapes;
+  4. main path: the flagship predict (Cityscapes 256x512, 14 frames with 4
+     of context, bf16 nets, "fast" sampling, iterative inversion) with
+     seeded random weights; checks the kernel launch counts and the
+     outputs, times predicted frames/s with CUDA events, and runs a small
+     float32 predict on the card against the same predict on the CPU;
+  5. kernel timings at the flagship shapes beside their bounds.
+With --profile DIR, phase 4 also traces one predict with torch.profiler and
+writes the device time per span and per kernel, and the device's idle
+share, to DIR/profile.json and DIR/profile.txt.
+The line before the last is the kernels' JSON summary; the last line is
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# (memory bytes/s, float32 CUDA-core flop/s), dense, published for each card
+# the port is run on, by the name torch.cuda.get_device_name gives it
+_CARDS = {
+    "NVIDIA H100 80GB HBM3": (3.35e12, 67e12),  # H100 SXM
+}
+
+K1_SOURCE = "waldo_tpu_torch/csrc/warp_alpha_ctx.cu"
+K2_SOURCE = "waldo_tpu_torch/csrc/grid_sample.cu"
+K1_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:842"
+K2_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:470"
+# float32 kernel vs float32 plain version: the same arithmetic summed in
+# another order (and, for the fused warp, a C-term product), ~1e-6 apart
+TOL_F32 = 1e-4
+# bf16 textures: both sides round one float32 result to bf16, which may
+# land one bf16 step (2^-8 relative) apart
+TOL_BF16 = 2 ** -7
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def card_rates(name):
+    if name not in _CARDS:
+        raise RuntimeError(f"no memory and float32 rates for the card {name!r}: "
+                           f"add its published rates to _CARDS")
+    return _CARDS[name]
+
+
+def bound(card_name, nbytes, nops):
+    """The least time (ms) the card could take: bytes over its memory rate or
+    float32 operations over its peak, whichever is larger, and which."""
+    bw, fp32 = card_rates(card_name)
+    tb, to = nbytes / bw * 1e3, nops / fp32 * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def cuda_time(fn, reps, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+
+def smooth_grids(rng, rows, layers, gh, gw, dev, hole_frac=0.05):
+    """Per-(row, layer) random affine warps of the pixel-center grid (the
+    smooth TPS-like motion the predict path feeds its samplers), with a
+    share of pixels set to the inverse warp's far-out hole value 4.0.
+    Built on the device; (rows, layers, gh, gw, 2) float32."""
+    import torch
+    from waldo_tpu_torch.ops import get_grid
+
+    base = torch.as_tensor(get_grid(gh, gw).reshape(-1, 2), device=dev)
+    a = np.eye(2, dtype=np.float32) + rng.uniform(-0.1, 0.1, (rows, layers, 2, 2))
+    t = rng.uniform(-0.3, 0.3, (rows, layers, 1, 2))
+    a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    g = torch.einsum("pc,rlcd->rlpd", base, a) + t
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+    g[torch.rand(g.shape[:3], generator=gen, device=dev) < hole_frac] = 4.0
+    return g.reshape(rows, layers, gh, gw, 2).contiguous()
+
+
+def k1_inputs(rng, f, h, w, c, tp, tc, with_io, dev):
+    import torch
+
+    n = f * tp
+    alpha = rng.rand(f, h, w, c).astype(np.float32)
+    occ = rng.rand(n, c, c).astype(np.float32)
+    io = (rng.rand((n // (tc * tp)) * tp, c, h, w) > 0.3).astype(np.float32) if with_io else None
+    to = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    return to(alpha), smooth_grids(rng, n, c, h, w, dev), to(occ), to(io)
+
+
+def k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype=None):
+    import torch
+
+    img = torch.from_numpy(rng.rand(f, h, w, c).astype(np.float32) * 2 - 1).to(dev)
+    if dtype is not None:
+        img = img.to(dtype)
+    grid = smooth_grids(rng, f * tp, 1, ho, wo, dev)[:, 0].contiguous()
+    return img, grid
+
+
+def max_err(got, want):
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+
+    log("== 1. device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card_line = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card_line}")
+    name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
+        f"count {torch.cuda.device_count()}")
+    card_rates(name)  # the bounds of phase 5 need the card's rates
+    log(f"tf32 defaults: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"tf32 set: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return name, card_line
+
+
+def phase_build():
+    from waldo_tpu_torch.ops.kernels import build_all
+
+    log("== 2. build")
+    t0 = time.perf_counter()
+    report = build_all()
+    for src, r in report.items():
+        log(f"built {src} in {r['seconds']:.1f} s")
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {line.strip()}")
+    total = time.perf_counter() - t0
+    log(f"build wall time {total:.1f} s")
+    return total
+
+
+def phase_kernels(dev):
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import (grid_sample_ctx_plain,
+                                                 grid_sample_multigrid_plain,
+                                                 warp_alpha_ctx_plain)
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda, warp_alpha_ctx_cuda
+
+    log("== 3. kernels against their plain versions "
+        f"(tolerance {TOL_F32} float32, {TOL_BF16:.4g} bf16 output)")
+    rng = np.random.RandomState(0)
+    errs = {}
+
+    def k1_case(label, f, h, w, c, tp, tc, with_io):
+        a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, with_io, dev)
+        got = warp_alpha_ctx_cuda(a, g, o, io, tp, tc * tp)
+        want = warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=tc * tp)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        log(f"warp_alpha_ctx {label}: max|err| {e:.3g} (tol {TOL_F32})")
+        check(e <= TOL_F32 and all(torch.isfinite(x).all() for x in got),
+              f"warp_alpha_ctx {label} disagrees: {e}")
+        return e
+
+    errs["warp_alpha_ctx", 56] = k1_case("N=56 flagship", 4, 256, 512, 17, 14, 4, False)
+    errs["warp_alpha_ctx", 40] = k1_case("N=40 flagship", 4, 256, 512, 17, 10, 4, False)
+    k1_case("N=56 flagship, is_obj", 4, 256, 512, 17, 14, 4, True)
+    k1_case("N=40 flagship, is_obj", 4, 256, 512, 17, 10, 4, True)
+    k1_case("ragged 37x53 C=5, is_obj", 2, 37, 53, 5, 3, 2, True)
+    k1_case("ragged 29x61 C=32", 2, 29, 61, 32, 2, 1, False)
+
+    def k2_case(label, f, h, w, c, tp, ho, wo, dtype=None):
+        img, grid = k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype)
+        got = grid_sample_cuda(img, grid, tp)
+        want = grid_sample_ctx_plain(img.float(), grid, tp).to(img.dtype)
+        torch.cuda.synchronize()
+        tol = TOL_F32 if img.dtype == torch.float32 else TOL_BF16
+        e = float((got.float() - want.float()).abs().max())
+        log(f"grid_sample {label}: max|err| {e:.3g} (tol {tol:.3g})")
+        check(got.dtype == img.dtype and e <= tol and torch.isfinite(got).all(),
+              f"grid_sample {label} disagrees: {e}")
+        return e
+
+    errs["grid_sample", 56] = k2_case("N=56 C=23 flagship", 4, 256, 512, 23, 14, 256, 512)
+    errs["grid_sample", 40] = k2_case("N=40 C=23 flagship", 4, 256, 512, 23, 10, 256, 512)
+    k2_case("ragged 31x45 C=7 -> 19x70", 3, 31, 45, 7, 2, 19, 70)
+    k2_case("ragged bf16 31x45 C=7 -> 19x70", 3, 31, 45, 7, 2, 19, 70, torch.bfloat16)
+
+    # per-channel grids (training-path alpha warp shape)
+    img = torch.from_numpy(rng.rand(4, 256, 512, 17).astype(np.float32)).to(dev)
+    grids = smooth_grids(rng, 4, 17, 256, 512, dev)
+    got = grid_sample_cuda(img, grids)
+    want = grid_sample_multigrid_plain(img, grids)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max())
+    log(f"grid_sample per-channel 4x256x512 C=17: max|err| {e:.3g} (tol {TOL_F32})")
+    check(e <= TOL_F32, f"per-channel grid_sample disagrees: {e}")
+    pc_ms = cuda_time(lambda: grid_sample_cuda(img, grids), 10)
+    pc_plain = cuda_time(lambda: grid_sample_multigrid_plain(img, grids), 3)
+    f, h, w, c = img.shape
+    pc_bound, pc_by = bound(torch.cuda.get_device_name(0), 4 * (2 * f * h * w * c + f * c * h * w * 2),
+                            f * c * h * w * 24)
+    log(f"grid_sample per-channel 4x256x512 C=17: {pc_ms:.4f} ms (bound {pc_bound:.4f} ms by "
+        f"{pc_by}), plain {pc_plain:.4f} ms")
+    return errs, {"per_channel_ms": pc_ms, "per_channel_plain_ms": pc_plain,
+                  "per_channel_bound_ms": pc_bound, "per_channel_max_abs_err": e}
+
+
+def flagship_batch(cfg, dev, seed=0):
+    import torch
+
+    rng = np.random.RandomState(seed)
+    t, nl = cfg.data.vid_len, cfg.data.num_lyt
+    hd, wd = cfg.load_dim, int(cfg.load_dim * cfg.aspect_ratio)
+    h, w = cfg.dim, int(cfg.dim * cfg.aspect_ratio)
+    lyt = 5.0 * (2 * np.eye(nl, dtype=np.float32)[rng.randint(0, nl, (1, t, hd, wd))] - 1)
+    batch = {"vid": rng.rand(1, t, hd, wd, 3).astype(np.float32) * 2 - 1,
+             "lyt": lyt,
+             "flow": rng.randn(1, t, h, w, 2).astype(np.float32) * 0.02}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def small_cfg():
+    from waldo_tpu_torch.config import Config, DataConfig, ModelConfig
+
+    return Config(
+        dim=32, load_dim=64, aspect_ratio=2.0, compute_dtype="float32",
+        data=DataConfig(num_lyt=6, fg_idx=[0, 1], bg_idx=[2, 3], other_idx=[4], vid_len=5),
+        model=ModelConfig(
+            patch_size=8, latent_shape=(4, 8), obj_shape=(2, 2), embed_dim=64, num_heads=4,
+            num_obj=4, oe_depth=1, pe_depth=1, pg_com_depth=1, pg_enc_depth=1,
+            pg_dec_depth=1, pg_num_timesteps=5, oe_num_timesteps=5, ii_depth=2,
+            ii_embed_dim=32, ctx_len=2, use_pe=True, use_pg=True, use_ii=True,
+            fast_inverse_warp=True, sample_precision="float32"),
+    )
+
+
+def spans_and_kernels(prof, wall_ms):
+    """Device time per ``annotate`` span and per kernel, and the device's idle
+    share, from one profiled window of ``wall_ms`` (host clock, synced). A
+    span's device time runs from its first kernel's start to its last one's
+    end; busy time is the union of the kernels' own intervals."""
+    from torch.autograd import DeviceType
+
+    spans, kernels = {}, []
+    for e in prof.key_averages():
+        if e.is_user_annotation:
+            # a span has a host row and a device row under the same name
+            sp = spans.setdefault(e.key, {"count": 0, "device_ms": 0.0, "cpu_ms": 0.0})
+            sp["count"] = max(sp["count"], e.count)
+            sp["device_ms"] = max(sp["device_ms"], e.device_time_total / 1e3)
+            sp["cpu_ms"] = max(sp["cpu_ms"], e.cpu_time_total / 1e3)
+        elif e.device_type == DeviceType.CUDA:
+            kernels.append((e.self_device_time_total / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    ivals = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    busy_us, end = 0.0, -float("inf")
+    for s0, s1 in ivals:
+        if s1 > end:
+            busy_us += s1 - max(s0, end)
+            end = s1
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "kernel_ms": sum(k[0] for k in kernels),
+            "spans": dict(sorted(spans.items())),
+            "top_kernels": [{"ms": t, "count": c, "name": k[:120]} for t, c, k in kernels[:25]]}
+
+
+def phase_profile(syn, batch, out_dir):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        syn.predict(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    res = spans_and_kernels(prof, wall_ms)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+    with open(os.path.join(out_dir, "profile.txt"), "w") as fh:
+        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
+    log(f"profiled predict: {wall_ms:.2f} ms wall (profiler on), device busy "
+        f"{res['device_busy_ms']:.2f} ms, idle share {res['idle_share']:.3f}, "
+        f"kernel time {res['kernel_ms']:.2f} ms")
+    for name, sp in res["spans"].items():
+        log(f"  span {name}: device {sp['device_ms']:.3f} ms, host {sp['cpu_ms']:.3f} ms "
+            f"({sp['count']} calls)")
+    for k in res["top_kernels"][:12]:
+        log(f"  kernel {k['ms']:.3f} ms x{k['count']}: {k['name'][:90]}")
+    return res
+
+
+def phase_main(dev, iters, profile_dir=None):
+    import torch
+    from waldo_tpu_torch.config import flagship_cfg
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.ops.kernels import KERNELS, reset_launches
+
+    log("== 4. main path: flagship predict")
+    cfg = flagship_cfg()
+    t0 = time.perf_counter()
+    syn = Synthesizer(cfg, device=dev, seed=0)
+    batch = flagship_batch(cfg, dev)
+    torch.cuda.synchronize()
+    log(f"synthesizer + batch ready in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for n in syn.nets().values() for p in n.parameters())} parameters)")
+    for _ in range(2):
+        syn.predict(batch)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = syn.predict(batch)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    by_rows = {k: dict(v.launches_by_rows) for k, v in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"launches in one predict: {launches} by rows {by_rows}")
+    check(launches == {"warp_alpha_ctx": 2, "grid_sample": 2},
+          f"expected 2 launches of each kernel per predict, got {launches}")
+    check(by_rows["warp_alpha_ctx"] == {56: 1, 40: 1} and by_rows["grid_sample"] == {56: 1, 40: 1},
+          f"unexpected launch shapes {by_rows}")
+
+    t, ctx = cfg.data.vid_len, cfg.model.ctx_len
+    shapes = {"rec_vid": (1, t, 256, 512, 3), "inp_rec_vid": (1, t, 256, 512, 3),
+              "pred_vid": (1, t, 256, 512, 3), "inp_pred_vid": (1, t, 256, 512, 3),
+              "pred_flow": (1, ctx, t - ctx, 256, 512, 2)}
+    for k, shape in shapes.items():
+        check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)} != {shape}")
+        check(bool(torch.isfinite(out[k]).all()), f"{k} has non-finite values")
+    check(torch.equal(out["pred_vid"][:, :ctx], batch["vid"][:, :ctx]),
+          "pred_vid does not start with the context frames")
+    check(torch.equal(out["inp_pred_vid"][:, :ctx].float(), batch["vid"][:, :ctx]),
+          "inp_pred_vid does not start with the context frames")
+    log("outputs finite, of the expected shapes; pred_vid[:, :4] == input frames")
+
+    ms = cuda_time(lambda: syn.predict(batch), iters, warmup=1)
+    fps = (t - ctx) / (ms / 1e3)
+    log(f"predict: {ms:.2f} ms per call over {iters} calls -> {fps:.3f} predicted frames/s; "
+        f"peak memory {peak_gb:.2f} GB")
+    prof = phase_profile(syn, batch, profile_dir) if profile_dir else None
+    del out, syn
+    torch.cuda.empty_cache()
+
+    # small float32 predict on the card against the same predict on the CPU
+    cfg_s = small_cfg()
+    gpu = Synthesizer(cfg_s, device=dev, seed=1)
+    cpu = Synthesizer(cfg_s, device="cpu", seed=1)
+    b_cpu = {k: v.cpu() for k, v in flagship_batch(cfg_s, "cpu", seed=1).items()}
+    want = cpu.predict(b_cpu)
+    got = gpu.predict({k: v.to(dev) for k, v in b_cpu.items()})
+    err = max(float((got[k].cpu() - want[k]).abs().max()) for k in shapes)
+    log(f"small float32 predict, card vs CPU: max|err| {err:.3g} (tol 1e-3)")
+    check(err <= 1e-3, f"small predict on the card disagrees with the CPU: {err}")
+    return {"ms_per_predict": ms, "fps": fps, "peak_gb": peak_gb, "launches": launches,
+            "launches_by_rows": by_rows, "small_predict_err": err, "profile": prof}
+
+
+def phase_timings(dev, card_name, errs, by_rows):
+    import torch
+    import torch.nn.functional as F
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain, warp_alpha_ctx_plain
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda, warp_alpha_ctx_cuda
+
+    log("== 5. kernel timings at the flagship shapes")
+    bw, fp32 = card_rates(card_name)
+    log(f"bounds at {bw / 1e12:.2f} TB/s and {fp32 / 1e12:.0f} TFLOP/s float32 ({card_name})")
+    rng = np.random.RandomState(1)
+    rows = []
+
+    for tp in (14, 10):
+        f, h, w, c, tc = 4, 256, 512, 17, 4
+        n, p = f * tp, h * w
+        a, g, o, _ = k1_inputs(rng, f, h, w, c, tp, tc, False, dev)
+        ms = cuda_time(lambda: warp_alpha_ctx_cuda(a, g, o, None, tp, tc * tp), 20)
+        plain = cuda_time(lambda: warp_alpha_ctx_plain(a, g, o, None, tp_sz=tp, tcp=tc * tp), 3)
+        nbytes = 4 * (f * p * c + n * c * p * 2 + n * c * c + n * p * (c + 3))
+        b_ms, b_by = bound(card_name, nbytes, n * p * (3 * c * c + 32 * c))
+        rows.append({"name": f"warp_alpha_ctx N={n}", "route": "cuda", "source": K1_SOURCE,
+                     "replaces": K1_REPLACES, "launches": by_rows["warp_alpha_ctx"].get(n, 0),
+                     "max_abs_err": errs["warp_alpha_ctx", n], "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del a, g, o
+
+        c = 23
+        img, grid = k2_inputs(rng, f, h, w, c, tp, h, w, dev)
+        ms = cuda_time(lambda: grid_sample_cuda(img, grid, tp), 20)
+        plain = cuda_time(lambda: grid_sample_ctx_plain(img, grid, tp), 3)
+        rep = img.repeat_interleave(tp, dim=0).permute(0, 3, 1, 2).contiguous()
+        lib = cuda_time(lambda: F.grid_sample(rep, grid, mode="bilinear", padding_mode="zeros",
+                                              align_corners=False), 20)
+        nbytes = 4 * (f * p * c + n * p * 2 + n * p * c)
+        b_ms, b_by = bound(card_name, nbytes, n * p * (16 + 8 * c))
+        rows.append({"name": f"grid_sample_ctx N={n}", "route": "cuda", "source": K2_SOURCE,
+                     "replaces": K2_REPLACES, "launches": by_rows["grid_sample"].get(n, 0),
+                     "max_abs_err": errs["grid_sample", n], "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+        del img, grid, rep
+        torch.cuda.empty_cache()
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
+            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms")
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=10, help="timed predicts")
+    ap.add_argument("--out", default=None, help="write the full results as JSON here")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="trace one flagship predict with torch.profiler into DIR")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import waldo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    name, card_line = phase_device()
+    build_s = phase_build()
+    errs, per_channel = phase_kernels(dev)
+    main_res = phase_main(dev, args.iters, args.profile)
+    rows = phase_timings(dev, name, errs, main_res["launches_by_rows"])
+    log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump({"card": card_line, "build_s": build_s, "per_channel": per_channel,
+                       "main": main_res, "kernels": rows}, fh, indent=1)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,214 @@
+"""JAX parameter trees -> the port's modules.
+
+``from_jax(params_np, synthesizer)`` takes the JAX package's parameter tree
+as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` of
+``Synthesizer.init_params``: keys "pe", "pg", "ii", each optionally under a
+"params" collection) and loads it into the synthesizer's ``lvd``, ``flp``
+and ``wif`` modules. It is strict: a leaf of the tree that no port parameter
+takes, a port parameter that no leaf fills, or a shape that disagrees
+raises.
+
+Layout rules (the inverse of waldo_tpu/models/convert.py):
+  dense  flax kernel (I, O)          -> torch (O, I)
+  conv   flax kernel (kh, kw, I, O)  -> torch (O, I, kh, kw)
+  deconv flax kernel (kh, kw, I, O)  -> torch (I, O, kh, kw), spatially
+         flipped: the JAX transposed conv correlates its kernel as given,
+         torch's ConvTranspose2d the flipped one
+  copy   identical shapes (embeddings, norm scale/bias, noise_strength)
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+# rule: (port state_dict key, flax path "a/b/c", kind)
+Rule = Tuple[str, str, str]
+
+_ATTN_CLS = {"full": "FullAttention_0", "cross": "CrossAttention_0",
+             "obj": "ObjAttention_0", "cls": "ClsAttention_0"}
+# port linear name -> flax Dense index, has_bias
+_ATTN_LINS = {
+    "full": [("qkv", 0, False), ("proj", 1, True)],
+    "cross": [("q", 0, False), ("kv", 1, False), ("proj", 2, True)],
+    "obj": [("q", 0, False), ("kv", 1, False), ("proj", 2, True)],
+    "cls": [("q", 0, False), ("kv", 1, False), ("proj", 2, True)],
+}
+
+
+def _norm(t: str, f: str, norm_layer: str) -> List[Rule]:
+    sub = {"ln": "LayerNorm_0", "ln2d": "GroupNorm_0"}.get(norm_layer)
+    if sub is None:
+        return []
+    return [(f"{t}.weight", f"{f}/{sub}/scale", "copy"),
+            (f"{t}.bias", f"{f}/{sub}/bias", "copy")]
+
+
+def _dense(t: str, f: str, has_bias: bool = True) -> List[Rule]:
+    rules = [(f"{t}.weight", f"{f}/kernel", "dense")]
+    if has_bias:
+        rules.append((f"{t}.bias", f"{f}/bias", "copy"))
+    return rules
+
+
+def _block(t: str, f: str, block_type: str, norm_layer: str, noise: bool = False) -> List[Rule]:
+    rules = _norm(f"{t}.norm1", f"{f}/CustomNorm_0", norm_layer)
+    rules += _norm(f"{t}.norm2", f"{f}/CustomNorm_1", norm_layer)
+    attn = _ATTN_CLS[block_type]
+    for lin, idx, has_bias in _ATTN_LINS[block_type]:
+        rules += _dense(f"{t}.attn.{lin}", f"{f}/{attn}/Dense_{idx}", has_bias)
+    if noise:
+        rules.append((f"{t}.attn.noise_strength", f"{f}/{attn}/noise_strength", "copy"))
+    rules += _dense(f"{t}.mlp.fc1", f"{f}/Mlp_0/Dense_0")
+    rules += _dense(f"{t}.mlp.fc2", f"{f}/Mlp_0/Dense_1")
+    return rules
+
+
+def _multiblocks(t: str, f: str, depth: int, block_type: str, norm_layer: str) -> List[Rule]:
+    rules: List[Rule] = []
+    for i in range(depth):
+        rules += _block(f"{t}.layers.{i}", f"{f}/Block_{i}", block_type, norm_layer)
+    return rules
+
+
+def _conv_block(t: str, f: str, mode: str, norm_layer: str) -> List[Rule]:
+    conv = "Conv_0" if mode == "conv" else "ConvTranspose_0"
+    kind = "conv" if mode == "conv" else "deconv"
+    return ([(f"{t}.conv.weight", f"{f}/{conv}/kernel", kind)]
+            + _norm(f"{t}.norm", f"{f}/CustomNorm_0", norm_layer))
+
+
+def _patch_proj(t: str, f: str, patch_size: int, from_patch: bool, norm_layer: str) -> List[Rule]:
+    num_dims = int(math.log2(patch_size))
+    if from_patch:
+        rules = [(f"{t}.conv_in.weight", f"{f}/Conv_0/kernel", "conv")]
+        for i in range(num_dims - 2):
+            rules += _conv_block(f"{t}.blocks.{i}", f"{f}/_ConvBlock_{i}", "conv", norm_layer)
+        return rules + [(f"{t}.conv_out.weight", f"{f}/Conv_1/kernel", "conv")]
+    rules = []
+    for i in range(num_dims - 1):
+        rules += _conv_block(f"{t}.blocks.{i}", f"{f}/_ConvBlock_{i}", "deconv", norm_layer)
+    return rules + [(f"{t}.proj.weight", f"{f}/proj/kernel", "deconv")]
+
+
+def lvd_rules(cfg) -> List[Rule]:
+    m = cfg.model
+    nl, nlp = m.norm_layer, m.norm_layer_patch
+    rules = _patch_proj("encoder.proj", "encoder/ConvPatchProj_0", m.patch_size, True, nlp)
+    le = "layer_estimator"
+    embeds = (["obj_spatial_embed", "obj_num_embed"] if m.decompose_embed_oe else ["obj_embed"])
+    rules += [(f"{le}.{e}", f"{le}/{e}", "copy") for e in embeds + ["time_embed", "pos_embed"]]
+    rules += _norm(f"{le}.norm", f"{le}/CustomNorm_0", nl)
+    rules += _multiblocks(f"{le}.blocks", f"{le}/MultiBlocks_0", m.oe_depth, "obj", nl)
+    if m.pred_cls:
+        rules += _norm(f"{le}.cls_norm", f"{le}/CustomNorm_1", nl)
+        rules += _dense(f"{le}.cls_head", f"{le}/Dense_0")
+    pe = "pose_estimator"
+    rules += [(f"{pe}.obj_embed", f"{pe}/obj_embed", "copy"),
+              (f"{pe}.pos_embed", f"{pe}/pos_embed", "copy")]
+    rules += _multiblocks(f"{pe}.blocks", f"{pe}/MultiBlocks_0", m.pe_depth, "full", nl)
+    rules += _norm(f"{pe}.norm", f"{pe}/CustomNorm_0", nl)
+    rules += _dense(f"{pe}.head", f"{pe}/Dense_0")
+    rules += _norm("decoder.norm", "decoder/CustomNorm_0", nl)
+    rules += _patch_proj("decoder.proj", "decoder/ConvPatchProj_0", m.patch_size, False, nlp)
+    return rules
+
+
+def flp_rules(cfg) -> List[Rule]:
+    m = cfg.model
+    nl = m.norm_layer
+    rules: List[Rule] = [("compress.cls_embed", "compress/cls_embed", "copy")]
+    rules += _norm("compress.norm", "compress/CustomNorm_0", nl)
+    rules += _multiblocks("compress.blocks", "compress/MultiBlocks_0", m.pg_com_depth, "cls", nl)
+    rules += [("encode.lay_embed", "encode/lay_embed", "copy"),
+              ("encode.time_embed", "encode/time_embed", "copy")]
+    rules += _dense("encode.to_obj_emb", "encode/Dense_0")
+    rules += _dense("encode.to_bg_emb", "encode/Dense_1")
+    rules += _multiblocks("encode.blocks", "encode/MultiBlocks_0", m.pg_enc_depth, "full", nl)
+    rules += _norm("encode.norm", "encode/CustomNorm_0", nl)
+    for i in range(m.pg_dec_depth):
+        rules += _block(f"decode.self_blocks.{i}", f"decode/Block_{2 * i}", "full", nl,
+                        noise=m.pg_inject_noise)
+        rules += _block(f"decode.cross_blocks.{i}", f"decode/Block_{2 * i + 1}", "cross", nl)
+    rules += _norm("decode.norm", "decode/CustomNorm_0", nl)
+    rules += _dense("decode.obj_head", "decode/Dense_0")
+    rules += _dense("decode.bg_head", "decode/Dense_1")
+    return rules
+
+
+def wif_rules(cfg) -> List[Rule]:
+    m = cfg.model
+    nlp, d = m.norm_layer_patch, m.ii_depth
+    rules: List[Rule] = [("unet.to_emb.weight", "UNet_0/Conv_0/kernel", "conv"),
+                         ("unet.from_emb.weight", "UNet_0/Conv_1/kernel", "conv")]
+    for i in range(d):
+        rules += _conv_block(f"unet.conv_layers.{i}", f"UNet_0/_ConvBlock_{i}", "conv", nlp)
+        rules += _conv_block(f"unet.deconv_layers.{i}", f"UNet_0/_ConvBlock_{d + i}",
+                             "deconv", nlp)
+    return rules
+
+
+_RULES = {"pe": lvd_rules, "pg": flp_rules, "ii": wif_rules}
+
+
+def _convert_leaf(arr: np.ndarray, kind: str) -> np.ndarray:
+    arr = np.asarray(arr, np.float32)
+    if kind == "dense":
+        return arr.T
+    if kind == "conv":  # (kh,kw,I,O) -> (O,I,kh,kw)
+        return arr.transpose(3, 2, 0, 1)
+    if kind == "deconv":  # (kh,kw,I,O) -> flipped (I,O,kh,kw)
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    return arr
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def _net_state_dict(module: torch.nn.Module, tree, rules: List[Rule], net: str):
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    leaves = _flatten(tree)
+    own = module.state_dict()
+    new = {}
+    for key, fpath, kind in rules:
+        if fpath not in leaves:
+            raise KeyError(f"JAX tree {net!r} has no leaf {fpath!r} (wanted for {key})")
+        if key not in own:
+            raise KeyError(f"port module {net!r} has no parameter {key!r} (for {fpath})")
+        arr = _convert_leaf(leaves.pop(fpath), kind)
+        if tuple(arr.shape) != tuple(own[key].shape):
+            raise ValueError(f"{net}: {fpath} {arr.shape} does not fit {key} "
+                             f"{tuple(own[key].shape)}")
+        new[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    if leaves:
+        raise ValueError(f"JAX tree {net!r} has leaves no port parameter takes: "
+                         f"{sorted(leaves)[:8]}")
+    unfilled = sorted(set(own) - set(new))
+    if unfilled:
+        raise ValueError(f"port module {net!r} has parameters no leaf fills: {unfilled[:8]}")
+    return new
+
+
+def from_jax(params_np, synthesizer) -> None:
+    """Load a JAX parameter tree (nested dicts of numpy arrays) into the
+    synthesizer's nets, strictly (see the module docstring)."""
+    nets = synthesizer.nets()
+    extra = sorted(set(params_np) - set(nets))
+    if extra:
+        raise ValueError(f"JAX tree has nets the port does not hold: {extra}")
+    for net, module in nets.items():
+        if net not in params_np:
+            raise KeyError(f"JAX tree has no {net!r} parameters")
+        sd = _net_state_dict(module, params_np[net], _RULES[net](synthesizer.cfg), net)
+        module.load_state_dict(sd, strict=True)

@@ -1,0 +1,129 @@
+"""Bilinear grid sampling with torch ``F.grid_sample`` semantics (bilinear,
+zero padding, align_corners=False), channel-last (counterpart of
+waldo_tpu/ops/grid_sample.py).
+
+Layout: image (B, H, W, C), grid (B, Ho, Wo, 2) with (x, y) in [-1, 1].
+
+``grid_sample`` and ``grid_sample_multigrid`` on the CPU are plain PyTorch;
+``grid_sample_ctx`` and ``warp_alpha_ctx`` are the two hot samples of the
+predict path. For each of those three the plain PyTorch version sits here
+(``*_plain``) and a CUDA tensor goes to the hand-written kernel
+(ops/kernels): there is no fallback from a CUDA tensor to the plain
+version. The kernels and the plain versions compute in float32: the JAX
+signatures' ``precision`` has no counterpart here, since "fast" sampling
+only decides where the callers store bf16 maps.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .grid import get_grid
+from .kernels import grid_sample_cuda, warp_alpha_ctx_cuda
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Sample img (B,H,W,C) at grid (B,Ho,Wo,2) -> (B,Ho,Wo,C) in img's dtype,
+    computed in float32. The generic sampler: the small samples of the path
+    (TPS inversion, layer_to_output) that the JAX package leaves to XLA."""
+    out = F.grid_sample(img.permute(0, 3, 1, 2).float(), grid.float(),
+                        mode="bilinear", padding_mode="zeros", align_corners=False)
+    return out.permute(0, 2, 3, 1).to(img.dtype)
+
+
+def grid_sample_multigrid_plain(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
+    """Per-channel grids: channels folded into the batch of ``grid_sample``."""
+    b, h, w, c = img.shape
+    img_f = img.permute(0, 3, 1, 2).reshape(b * c, h, w, 1)
+    out = grid_sample(img_f, grids.reshape((b * c,) + tuple(grids.shape[2:])))
+    return out.reshape((b, c) + tuple(out.shape[1:3])).permute(0, 2, 3, 1)
+
+
+class _MultigridSampleCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, grids):
+        return grid_sample_cuda(img.contiguous(), grids.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the per-channel grid_sample kernel has no backward yet: it lands "
+            "with the training slice (the JAX package's folded VJP)")
+
+
+def grid_sample_multigrid(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
+    """Per-channel-grid sampling: out[..., k] samples img[..., k] along
+    grids[:, k]. img (B,H,W,C), grids (B,C,Ho,Wo,2) -> (B,Ho,Wo,C)."""
+    if img.is_cuda:
+        return _MultigridSampleCuda.apply(img, grids)
+    return grid_sample_multigrid_plain(img, grids)
+
+
+def grid_sample_ctx_plain(img: torch.Tensor, grid: torch.Tensor, tp_sz: int) -> torch.Tensor:
+    rep = img if tp_sz == 1 else img.repeat_interleave(tp_sz, dim=0)
+    return grid_sample(rep, grid)
+
+
+def grid_sample_ctx(img: torch.Tensor, grid: torch.Tensor, *, tp_sz: int) -> torch.Tensor:
+    """Shared-texture context-fusion sampling: grid row i samples img row
+    i // tp_sz. img (F,H,W,C), grid (F*tp_sz,Ho,Wo,2) -> (F*tp_sz,Ho,Wo,C).
+    On a CUDA tensor the kernel reads each texture once for its tp_sz grid
+    rows; the plain version materializes tp_sz copies first."""
+    f = img.shape[0]
+    if grid.shape[0] != f * tp_sz:
+        raise ValueError(f"grid rows {grid.shape[0]} != {f} textures * tp_sz {tp_sz}")
+    if img.is_cuda:
+        return grid_sample_cuda(img.contiguous(), grid.float().contiguous(), tp_sz)
+    return grid_sample_ctx_plain(img, grid, tp_sz)
+
+
+def warp_alpha_ctx_plain(alpha_u, grids, occ, is_obj, *, tp_sz, tcp):
+    """Plain PyTorch composition of the fused warp (same math as the kernel).
+    Both pairwise products run as a loop over the occluder / layer axis, so
+    memory stays at (N, gh, gw, C) instead of (N, gh, gw, C, C)."""
+    f, h, w, c = alpha_u.shape
+    n, _, gh, gw, _ = grids.shape
+    a_g = alpha_u.float().repeat_interleave(tp_sz, dim=0)
+    sam = grid_sample_multigrid_plain(a_g, grids)
+    if is_obj is not None:
+        k = torch.arange(n, device=alpha_u.device)
+        rows = (k // tcp) * tp_sz + k % tp_sz
+        sam = sam * is_obj[rows].permute(0, 2, 3, 1).to(sam.dtype)
+    dis = sam.amax(dim=-1, keepdim=True)
+    o = occ.float()
+    occp = torch.ones_like(sam)
+    for i in range(c):
+        occp = occp * (1.0 - sam[..., i:i + 1] * o[:, None, None, i, :])
+    a_occ = occp * sam
+    base = torch.as_tensor(get_grid(gh, gw), device=alpha_u.device)
+    flow = torch.zeros((n, gh, gw, 2), dtype=torch.float32, device=alpha_u.device)
+    for j in range(c):
+        flow = flow + a_occ[..., j:j + 1] * (grids[:, j].float() - base)
+    return a_occ, dis, flow
+
+
+def warp_alpha_ctx(alpha_u: torch.Tensor, grids: torch.Tensor, occ: torch.Tensor,
+                   is_obj: Optional[torch.Tensor], *, tp_sz: int, tcp: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused predict-path alpha_ctx warp (sample + ghost mask + disocc max +
+    prediction-time occlusion product + alpha-weighted flow reduction).
+
+    alpha_u (F, H, W, C): unique frame-occluded per-layer alphas, F = B*Tc
+    grids   (N, C, gh, gw, 2): per-layer grids, N = B*Tc*Tp row-major; row n
+            samples frame n // tp_sz (ctx_ts uniform over the pred axis)
+    occ     (N, C, C); is_obj (B*Tp, C, gh, gw) or None; tp_sz=Tp, tcp=Tc*Tp
+
+    Returns (alpha_occ (N, gh, gw, C), disocc (N, gh, gw, 1),
+    flow (N, gh, gw, 2) = sum_j alpha_occ_j * (g_j - base_grid)), float32."""
+    f, h, w, c = alpha_u.shape
+    n, gc = grids.shape[:2]
+    if gc != c or n != f * tp_sz:
+        raise ValueError(f"alpha {tuple(alpha_u.shape)} and grids {tuple(grids.shape)} "
+                         f"disagree for tp_sz {tp_sz}")
+    if alpha_u.is_cuda:
+        io = is_obj.float().contiguous() if is_obj is not None else None
+        return warp_alpha_ctx_cuda(alpha_u.float().contiguous(), grids.float().contiguous(),
+                                   occ.float().contiguous(), io, tp_sz, tcp)
+    return warp_alpha_ctx_plain(alpha_u, grids, occ, is_obj, tp_sz=tp_sz, tcp=tcp)

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels of the port, their wrappers and launch counts.
+
+``KERNELS`` maps a kernel's name to its ``CudaKernel`` (launch count,
+source); ``build_all`` compiles every source in parallel."""
+from .build import build
+from .grid_sample import GRID_SAMPLE, grid_sample_cuda
+from .warp_alpha_ctx import WARP_ALPHA_CTX, warp_alpha_ctx_cuda
+
+KERNELS = {"warp_alpha_ctx": WARP_ALPHA_CTX, "grid_sample": GRID_SAMPLE}
+
+
+def build_all():
+    return build(k.source for k in KERNELS.values())
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.reset()
