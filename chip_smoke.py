@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (waldo_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--iters N] [--out results.json]
+    python3 chip_smoke.py [--iters N] [--out results.json] [--profile DIR]
 
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
      TF32 settings (both set off: the checks below are float32);
   2. build: compiles every CUDA kernel of the port from its sources;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the flagship predict shapes and at ragged small shapes;
+     the main paths' shapes and at ragged small shapes (bias_act: all nine
+     activations, with and without bias, gain and clamp);
   4. main path: the flagship predict (Cityscapes 256x512, 14 frames with 4
      of context, bf16 nets, "fast" sampling, iterative inversion) with
      seeded random weights; checks the kernel launch counts and the
      outputs, times predicted frames/s with CUDA events, and runs a small
      float32 predict on the card against the same predict on the CPU;
-  5. kernel timings at the flagship shapes beside their bounds.
-With --profile DIR, phase 4 also traces one predict with torch.profiler and
-writes the device time per span and per kernel, and the device's idle
-share, to DIR/profile.json and DIR/profile.txt.
+  5. MAT path (scripts/cityscapes/test_mat.sh): the flagship predict with
+     the test_mat flags, then inpaint_with_mat with a 512 MatInpainter
+     (seeded random weights; MAT at its published widths on 512x512
+     crops); checks the launch counts (the warp with its ghost mask, the
+     sampler, bias_act once per MAT layer) and the output, times ms per clip
+     over MAT_CLIPS clips and predicted frames/s, and runs a small float32
+     chain (MAT at 128) on the card against the same chain on the CPU;
+  6. kernel timings at the main paths' shapes beside their bounds (the warp
+     with and without its ghost mask, as the two paths launch it).
+With --profile DIR, phases 4 and 5 also trace one predict and one MAT clip
+with torch.profiler and write the device time per span and per kernel, and
+the device's idle share, to DIR/profile{,_mat}.json and .txt.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -40,8 +49,15 @@ _CARDS = {
 
 K1_SOURCE = "waldo_tpu_torch/csrc/warp_alpha_ctx.cu"
 K2_SOURCE = "waldo_tpu_torch/csrc/grid_sample.cu"
+K3_SOURCE = "waldo_tpu_torch/csrc/bias_act.cu"
 K1_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:842"
 K2_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:470"
+K3_REPLACES = "waldo_tpu/ops/pallas/bias_act.py:71"
+# MAT's largest bias_act call: FirstStage conv_first and the last
+# DecStyleBlock at 512x512, 180 channels
+K3_SHAPE = (1, 512, 512, 180)
+# timed test_mat clips (one clip takes ~2 s on an H100)
+MAT_CLIPS = 3
 # float32 kernel vs float32 plain version: the same arithmetic summed in
 # another order (and, for the fused warp, a C-term product), ~1e-6 apart
 TOL_F32 = 1e-4
@@ -134,6 +150,15 @@ def k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype=None):
     return img, grid
 
 
+def jsonable(obj):
+    """``obj`` with every dict key made a string (launch keys are tuples)."""
+    if isinstance(obj, dict):
+        return {k if isinstance(k, str) else str(k): jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [jsonable(v) for v in obj]
+    return obj
+
+
 def max_err(got, want):
     return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
 
@@ -155,7 +180,7 @@ def phase_device():
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name} "
         f"count {torch.cuda.device_count()}")
-    card_rates(name)  # the bounds of phase 5 need the card's rates
+    card_rates(name)  # the bounds of phase 6 need the card's rates
     log(f"tf32 defaults: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,6 +208,7 @@ def phase_build():
 
 def phase_kernels(dev):
     import torch
+    import torch.nn.functional as F
     from waldo_tpu_torch.ops.grid_sample import (grid_sample_ctx_plain,
                                                  grid_sample_multigrid_plain,
                                                  warp_alpha_ctx_plain)
@@ -204,10 +230,11 @@ def phase_kernels(dev):
               f"warp_alpha_ctx {label} disagrees: {e}")
         return e
 
-    errs["warp_alpha_ctx", 56] = k1_case("N=56 flagship", 4, 256, 512, 17, 14, 4, False)
-    errs["warp_alpha_ctx", 40] = k1_case("N=40 flagship", 4, 256, 512, 17, 10, 4, False)
-    k1_case("N=56 flagship, is_obj", 4, 256, 512, 17, 14, 4, True)
-    k1_case("N=40 flagship, is_obj", 4, 256, 512, 17, 10, 4, True)
+    for tp in (14, 10):
+        for with_io in (False, True):
+            errs["warp_alpha_ctx", 4 * tp, with_io] = k1_case(
+                f"N={4 * tp} flagship" + (", is_obj" if with_io else ""),
+                4, 256, 512, 17, tp, 4, with_io)
     k1_case("ragged 37x53 C=5, is_obj", 2, 37, 53, 5, 3, 2, True)
     k1_case("ragged 29x61 C=32", 2, 29, 61, 32, 2, 1, False)
 
@@ -240,12 +267,74 @@ def phase_kernels(dev):
     pc_ms = cuda_time(lambda: grid_sample_cuda(img, grids), 10)
     pc_plain = cuda_time(lambda: grid_sample_multigrid_plain(img, grids), 3)
     f, h, w, c = img.shape
+    # one library call for the same function: the channels folded into the
+    # batch, one single-channel texture per grid
+    img_fold = img.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
+    grids_fold = grids.reshape(f * c, h, w, 2)
+    pc_lib = cuda_time(lambda: F.grid_sample(img_fold, grids_fold, mode="bilinear",
+                                             padding_mode="zeros", align_corners=False), 10)
     pc_bound, pc_by = bound(torch.cuda.get_device_name(0), 4 * (2 * f * h * w * c + f * c * h * w * 2),
                             f * c * h * w * 24)
     log(f"grid_sample per-channel 4x256x512 C=17: {pc_ms:.4f} ms (bound {pc_bound:.4f} ms by "
-        f"{pc_by}), plain {pc_plain:.4f} ms")
+        f"{pc_by}), plain {pc_plain:.4f} ms, library (F.grid_sample, channels folded into "
+        f"the batch) {pc_lib:.4f} ms")
+    del img, grids, img_fold, grids_fold
+
+    errs["bias_act"] = phase_kernels_bias_act(dev, rng)
     return errs, {"per_channel_ms": pc_ms, "per_channel_plain_ms": pc_plain,
-                  "per_channel_bound_ms": pc_bound, "per_channel_max_abs_err": e}
+                  "per_channel_library_ms": pc_lib, "per_channel_bound_ms": pc_bound,
+                  "per_channel_max_abs_err": e}
+
+
+def phase_kernels_bias_act(dev, rng):
+    """bias_act against its plain version: every activation with and without
+    bias, gain and clamp, on a ragged width (one element a thread) and a
+    width of a multiple of 4 (float4 a thread) and on an unaligned view;
+    then the MAT shapes. Also checks that a CUDA tensor of another dtype or
+    another bias axis raises. Returns max|err| at K3_SHAPE."""
+    import torch
+    from waldo_tpu_torch.ops.bias_act import _ACTS, bias_act, bias_act_plain
+    from waldo_tpu_torch.ops.kernels import bias_act_cuda
+
+    def case(label, x, b, act, gain, clamp):
+        got = bias_act_cuda(x, b, act, gain, clamp)
+        want = bias_act_plain(x, b, -1, act, gain, clamp)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        check(e <= TOL_F32 and bool(torch.isfinite(got).all()),
+              f"bias_act {label} disagrees: max|err| {e}")
+        return e
+
+    worst = 0.0
+    for shape in ((3, 37, 21), (5, 33, 20)):
+        x = torch.from_numpy((rng.randn(*shape) * 3).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.randn(shape[-1]).astype(np.float32)).to(dev)
+        for act in sorted(_ACTS):
+            for bias, gain, clamp in ((b, _ACTS[act][1], None), (b, 0.7, 1.5), (None, 2.0, 0.5)):
+                worst = max(worst, case(f"{act} {shape}", x, bias, act, gain, clamp))
+    base = torch.from_numpy(rng.randn(1 + 6 * 40).astype(np.float32)).to(dev)
+    unaligned = base[1:].view(6, 40)
+    worst = max(worst, case("unaligned view", unaligned, torch.ones(40, device=dev), "lrelu", 1.4, 0.9))
+    log(f"bias_act, 9 activations x (bias, gain, clamp) on (3,37,21), (5,33,20) and an "
+        f"unaligned view: max|err| {worst:.3g} (tol {TOL_F32})")
+
+    x = torch.from_numpy((rng.randn(*K3_SHAPE) * 2).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(K3_SHAPE[-1]).astype(np.float32)).to(dev)
+    e_big = case(f"{K3_SHAPE} lrelu", x, b, "lrelu", _ACTS["lrelu"][1], None)
+    del x
+    tok = torch.from_numpy(rng.randn(1, 4096, 180).astype(np.float32)).to(dev)
+    e_tok = case("(1,4096,180) linear", tok, b, "linear", 1.0, None)
+    log(f"bias_act {K3_SHAPE} lrelu gain sqrt2: max|err| {e_big:.3g}; (1,4096,180) linear: "
+        f"max|err| {e_tok:.3g} (tol {TOL_F32})")
+
+    for bad, kw, err in ((tok.to(torch.bfloat16), {}, TypeError), (tok, {"dim": 1}, ValueError)):
+        try:
+            bias_act(bad, **kw)
+        except err:
+            continue
+        raise RuntimeError(f"bias_act on a CUDA tensor with {bad.dtype} {kw} did not raise")
+    log("bias_act on CUDA raises on bfloat16 and on a bias along another axis")
+    return e_big
 
 
 def flagship_batch(cfg, dev, seed=0):
@@ -306,26 +395,28 @@ def spans_and_kernels(prof, wall_ms):
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
             "kernel_ms": sum(k[0] for k in kernels),
             "spans": dict(sorted(spans.items())),
-            "top_kernels": [{"ms": t, "count": c, "name": k[:120]} for t, c, k in kernels[:25]]}
+            "top_kernels": [{"ms": t, "count": c, "name": k[:120]} for t, c, k in kernels[:25]],
+            "all_kernels": [{"ms": t, "count": c, "name": k[:120]} for t, c, k in kernels]}
 
 
-def phase_profile(syn, batch, out_dir):
+def phase_profile(fn, out_dir, label):
+    """Trace one call of ``fn`` into out_dir/profile{label}.json and .txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        syn.predict(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     res = spans_and_kernels(prof, wall_ms)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile.json"), "w") as fh:
+    with open(os.path.join(out_dir, f"profile{label}.json"), "w") as fh:
         json.dump(res, fh, indent=1)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"profile{label}.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
-    log(f"profiled predict: {wall_ms:.2f} ms wall (profiler on), device busy "
+    log(f"profiled{label or ' predict'}: {wall_ms:.2f} ms wall (profiler on), device busy "
         f"{res['device_busy_ms']:.2f} ms, idle share {res['idle_share']:.3f}, "
         f"kernel time {res['kernel_ms']:.2f} ms")
     for name, sp in res["spans"].items():
@@ -336,11 +427,18 @@ def phase_profile(syn, batch, out_dir):
     return res
 
 
+def read_launches():
+    from waldo_tpu_torch.ops.kernels import KERNELS
+
+    return ({k: v.launches for k, v in KERNELS.items()},
+            {k: dict(v.launches_by_key) for k, v in KERNELS.items()})
+
+
 def phase_main(dev, iters, profile_dir=None):
     import torch
     from waldo_tpu_torch.config import flagship_cfg
     from waldo_tpu_torch.models import Synthesizer
-    from waldo_tpu_torch.ops.kernels import KERNELS, reset_launches
+    from waldo_tpu_torch.ops.kernels import reset_launches
 
     log("== 4. main path: flagship predict")
     cfg = flagship_cfg()
@@ -358,14 +456,13 @@ def phase_main(dev, iters, profile_dir=None):
     torch.cuda.reset_peak_memory_stats()
     out = syn.predict(batch)
     torch.cuda.synchronize()
-    launches = {k: v.launches for k, v in KERNELS.items()}
-    by_rows = {k: dict(v.launches_by_rows) for k, v in KERNELS.items()}
+    launches, by_key = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"launches in one predict: {launches} by rows {by_rows}")
-    check(launches == {"warp_alpha_ctx": 2, "grid_sample": 2},
-          f"expected 2 launches of each kernel per predict, got {launches}")
-    check(by_rows["warp_alpha_ctx"] == {56: 1, 40: 1} and by_rows["grid_sample"] == {56: 1, 40: 1},
-          f"unexpected launch shapes {by_rows}")
+    log(f"launches in one predict: {launches} by key {by_key}")
+    check(launches == {"warp_alpha_ctx": 2, "grid_sample": 2, "bias_act": 0},
+          f"expected 2 launches of the warp and the sampler per predict, got {launches}")
+    check(by_key["warp_alpha_ctx"] == {(56, False): 1, (40, False): 1}
+          and by_key["grid_sample"] == {56: 1, 40: 1}, f"unexpected launch shapes {by_key}")
 
     t, ctx = cfg.data.vid_len, cfg.model.ctx_len
     shapes = {"rec_vid": (1, t, 256, 512, 3), "inp_rec_vid": (1, t, 256, 512, 3),
@@ -384,7 +481,7 @@ def phase_main(dev, iters, profile_dir=None):
     fps = (t - ctx) / (ms / 1e3)
     log(f"predict: {ms:.2f} ms per call over {iters} calls -> {fps:.3f} predicted frames/s; "
         f"peak memory {peak_gb:.2f} GB")
-    prof = phase_profile(syn, batch, profile_dir) if profile_dir else None
+    prof = phase_profile(lambda: syn.predict(batch), profile_dir, "") if profile_dir else None
     del out, syn
     torch.cuda.empty_cache()
 
@@ -399,16 +496,179 @@ def phase_main(dev, iters, profile_dir=None):
     log(f"small float32 predict, card vs CPU: max|err| {err:.3g} (tol 1e-3)")
     check(err <= 1e-3, f"small predict on the card disagrees with the CPU: {err}")
     return {"ms_per_predict": ms, "fps": fps, "peak_gb": peak_gb, "launches": launches,
-            "launches_by_rows": by_rows, "small_predict_err": err, "profile": prof}
+            "launches_by_key": by_key, "small_predict_err": err, "profile": prof}
 
 
-def phase_timings(dev, card_name, errs, by_rows):
+def mat_clip(cfg, syn, inpainter, batch):
+    """One test_mat clip: predict, then the MAT post-processing."""
+    from waldo_tpu_torch.models.mat_pipeline import inpaint_with_mat
+
+    out = syn.predict(batch)
+    return inpaint_with_mat(cfg, syn.warper, syn.wif, inpainter, out["pred_raw_output"],
+                            out["pred_alpha"], out["pred_alpha_ctx"], batch["vid"],
+                            out["pred_flow"], cfg.model.ctx_len, out["pred_grids"])
+
+
+def mat_chain_with_holes(cfg, syn, inpainter, batch):
+    """A test_mat clip whose alpha maps get a region no layer covers (a hole
+    that MAT fills) and an object on the left and on the right border in
+    every frame, with a zero last flow, so that the border completion
+    runs."""
+    import torch
+    from waldo_tpu_torch.models.mat_pipeline import inpaint_with_mat
+
+    out = syn.predict(batch)
+    ac = out["pred_alpha_ctx"].clone()
+    h, w = ac.shape[-3:-1]
+    ac[..., h // 4: h // 2, w // 3: w // 2, :] = -1.0
+    ac[..., h // 8: h // 4, :6, 1] = 1.0
+    ac[..., h // 2: 3 * h // 4, -6:, 2] = 1.0
+    return inpaint_with_mat(cfg, syn.warper, syn.wif, inpainter, out["pred_raw_output"],
+                            out["pred_alpha"], ac, batch["vid"],
+                            torch.zeros_like(out["pred_flow"]), cfg.model.ctx_len,
+                            out["pred_grids"])
+
+
+def same_z(inpainters, seed):
+    """Hand every inpainter the same z sequence, made with numpy."""
+    import torch
+
+    zs = np.random.RandomState(seed).randn(256, 1, 512).astype(np.float32)
+    for inp in inpainters:
+        it = iter(zs)
+        inp._next_z = lambda b, it=it, dev=inp.device: torch.from_numpy(next(it)).to(dev)
+
+
+def phase_mat(dev, profile_dir=None):
+    import torch
+    from waldo_tpu_torch.config import flagship_mat_cfg
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.models.mat import MatInpainter
+    from waldo_tpu_torch.models.mat import basic as mat_basic
+    from waldo_tpu_torch.ops.bias_act import bias_act
+    from waldo_tpu_torch.ops.kernels import BIAS_ACT, reset_launches
+
+    log("== 5. MAT path: flagship predict + inpaint_with_mat (test_mat)")
+    cfg = flagship_mat_cfg()
+    t0 = time.perf_counter()
+    syn = Synthesizer(cfg, device=dev, seed=0)
+    inp = MatInpainter(resolution=512, device=dev, seed=0)
+    batch = flagship_batch(cfg, dev)
+    torch.cuda.synchronize()
+    log(f"synthesizer + MAT inpainter + batch ready in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in inp.net.parameters())} MAT parameters)")
+
+    # bias_act launches of one Generator forward (a calibration run, not the
+    # path's), and how many of its inputs arrive strided, i.e. need a
+    # layout copy before the kernel (every MAT layer calls bias_act through
+    # models/mat/basic.py)
+    x0 = torch.zeros(1, 512, 512, 3, device=dev)
+    m0 = torch.ones(1, 512, 512, 1, device=dev)
+    strided = []
+
+    def counting_bias_act(x, *args, **kwargs):
+        if not x.is_contiguous():
+            strided.append(tuple(x.shape))
+        return bias_act(x, *args, **kwargs)
+
+    with torch.inference_mode():
+        reset_launches()
+        mat_basic.bias_act = counting_bias_act
+        try:
+            inp._apply(x0, m0, inp._next_z(1))
+        finally:
+            mat_basic.bias_act = bias_act
+        per_forward = BIAS_ACT.launches
+        gen_ms = cuda_time(lambda: inp._apply(x0, m0, inp._next_z(1)), 5)
+    log(f"one MAT Generator forward at 512x512: {per_forward} bias_act launches "
+        f"({len(strided)} of them on a strided input, copied first: {strided[:8]}), "
+        f"{gen_ms:.2f} ms")
+    mat_clip(cfg, syn, inp, batch)  # warm-up
+    torch.cuda.synchronize()
+
+    inp.calls = 0
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = mat_clip(cfg, syn, inp, batch)
+    torch.cuda.synchronize()
+    launches, by_key = read_launches()
+    forwards = inp.calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"launches in one clip: {launches} by key {by_key}; {forwards} MAT forwards "
+        f"({forwards // 3} inpainter calls of 3 crops)")
+    check(by_key["warp_alpha_ctx"] == {(56, True): 1, (40, True): 1},
+          f"the warp did not run with its ghost mask at N=56 and N=40: {by_key}")
+    check(by_key["grid_sample"] == {56: 1, 40: 1}, f"unexpected sampler launches {by_key}")
+    check(forwards % 3 == 0 and 11 <= forwards // 3 <= 13,
+          f"expected 11-13 inpainter calls of 3 crops, got {forwards} forwards")
+    check(launches["bias_act"] > 0 and launches["bias_act"] == per_forward * forwards,
+          f"bias_act launched {launches['bias_act']} times, not {per_forward} x {forwards}")
+
+    t, ctx = cfg.data.vid_len, cfg.model.ctx_len
+    check(tuple(out.shape) == (1, t, 256, 512, 3), f"inp_pred_vid shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "inp_pred_vid has non-finite values")
+    check(torch.equal(out[:, :ctx], batch["vid"][:, :ctx]),
+          "inp_pred_vid does not start with the context frames")
+    log(f"output (1, {t}, 256, 512, 3) finite; its first {ctx} frames == input frames")
+
+    ms = cuda_time(lambda: mat_clip(cfg, syn, inp, batch), MAT_CLIPS, warmup=0)
+    fps = (t - ctx) / (ms / 1e3)
+    log(f"MAT clip: {ms:.2f} ms per clip over {MAT_CLIPS} clips -> {fps:.4f} predicted frames/s; "
+        f"peak memory {peak_gb:.2f} GB")
+    prof = None
+    if profile_dir:
+        prof = phase_profile(lambda: mat_clip(cfg, syn, inp, batch), profile_dir, "_mat")
+        k3 = sum(k["ms"] for k in prof["all_kernels"] if "bias_act" in k["name"])
+        prof["bias_act_share"] = k3 / prof["kernel_ms"]
+        log(f"bias_act: {k3:.2f} ms of {prof['kernel_ms']:.2f} ms kernel time "
+            f"({prof['bias_act_share']:.3f})")
+    del out, syn, inp
+    torch.cuda.empty_cache()
+
+    # small float32 chain (MAT at 128) on the card against the CPU, with a
+    # hole and two border objects put into its alpha maps, so that MAT's
+    # fill reaches the output and the border completion runs
+    cfg_s = small_cfg()
+    for f in ("loop_ii", "inpaint_obj", "propagate_unique", "use_shadows", "use_expansion",
+              "soft_shadow", "propagate_obj", "use_inpainter", "use_mat_inpainter",
+              "restrict_to_ctx"):
+        setattr(cfg_s.model, f, True)
+    b_cpu = {k: v.cpu() for k, v in flagship_batch(cfg_s, "cpu", seed=2).items()}
+    outs, calls = [], []
+    for d in (dev, "cpu"):
+        syn_s = Synthesizer(cfg_s, device=d, seed=2)
+        inp_s = MatInpainter(resolution=128, device=d, seed=2)
+        same_z([inp_s], seed=3)
+        outs.append(mat_chain_with_holes(cfg_s, syn_s, inp_s,
+                                         {k: v.to(d) for k, v in b_cpu.items()}).cpu())
+        calls.append(inp_s.calls)
+    got, want = outs
+    tp_s = cfg_s.data.vid_len - cfg_s.model.ctx_len
+    check(calls == [3 * (tp_s + 3)] * 2,
+          f"expected {tp_s + 3} inpainter calls (reference, {tp_s} frames, 2 border objects) "
+          f"of 3 crops on each side, got {calls} forwards")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    log(f"small float32 MAT chain (with a hole and two border objects; {calls[0]} MAT "
+        f"forwards), card vs CPU: max|err| {err:.3g} (tol 1e-3 x max|CPU output| = "
+        f"{1e-3 * scale:.3g})")
+    check(bool(torch.isfinite(got).all()) and err <= 1e-3 * scale,
+          f"small MAT chain on the card disagrees with the CPU: {err}")
+    return {"ms_per_clip": ms, "fps": fps, "peak_gb": peak_gb, "launches": launches,
+            "launches_by_key": by_key, "mat_forwards": forwards,
+            "bias_act_per_forward": per_forward, "bias_act_strided_inputs": len(strided),
+            "generator_ms": gen_ms,
+            "small_chain_err": err, "small_chain_scale": scale, "profile": prof}
+
+
+def phase_timings(dev, card_name, errs, by_key, mat_by_key, k3_launches):
     import torch
     import torch.nn.functional as F
+    from waldo_tpu_torch.ops.bias_act import _ACTS, bias_act_plain
     from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain, warp_alpha_ctx_plain
-    from waldo_tpu_torch.ops.kernels import grid_sample_cuda, warp_alpha_ctx_cuda
+    from waldo_tpu_torch.ops.kernels import bias_act_cuda, grid_sample_cuda, warp_alpha_ctx_cuda
 
-    log("== 5. kernel timings at the flagship shapes")
+    log("== 6. kernel timings at the main paths' shapes")
     bw, fp32 = card_rates(card_name)
     log(f"bounds at {bw / 1e12:.2f} TB/s and {fp32 / 1e12:.0f} TFLOP/s float32 ({card_name})")
     rng = np.random.RandomState(1)
@@ -417,16 +677,28 @@ def phase_timings(dev, card_name, errs, by_rows):
     for tp in (14, 10):
         f, h, w, c, tc = 4, 256, 512, 17, 4
         n, p = f * tp, h * w
-        a, g, o, _ = k1_inputs(rng, f, h, w, c, tp, tc, False, dev)
-        ms = cuda_time(lambda: warp_alpha_ctx_cuda(a, g, o, None, tp, tc * tp), 20)
-        plain = cuda_time(lambda: warp_alpha_ctx_plain(a, g, o, None, tp_sz=tp, tcp=tc * tp), 3)
-        nbytes = 4 * (f * p * c + n * c * p * 2 + n * c * c + n * p * (c + 3))
-        b_ms, b_by = bound(card_name, nbytes, n * p * (3 * c * c + 32 * c))
-        rows.append({"name": f"warp_alpha_ctx N={n}", "route": "cuda", "source": K1_SOURCE,
-                     "replaces": K1_REPLACES, "launches": by_rows["warp_alpha_ctx"].get(n, 0),
-                     "max_abs_err": errs["warp_alpha_ctx", n], "ms": ms, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        del a, g, o
+        a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, True, dev)
+        # without the ghost mask as the predict launches it, with it as the
+        # MAT path (restrict_to_ctx) does; the mask adds its bytes and a
+        # multiply per sample
+        for mask, launches in ((None, by_key["warp_alpha_ctx"][n, False]),
+                               (io, mat_by_key["warp_alpha_ctx"][n, True])):
+            ms = cuda_time(lambda: warp_alpha_ctx_cuda(a, g, o, mask, tp, tc * tp), 20)
+            plain = cuda_time(lambda: warp_alpha_ctx_plain(a, g, o, mask, tp_sz=tp, tcp=tc * tp),
+                              3)
+            nbytes = 4 * (f * p * c + n * c * p * 2 + n * c * c + n * p * (c + 3))
+            nops = n * p * (3 * c * c + 32 * c)
+            if mask is not None:
+                nbytes += 4 * mask.numel()
+                nops += n * p * c
+            b_ms, b_by = bound(card_name, nbytes, nops)
+            rows.append({"name": f"warp_alpha_ctx N={n}" + ("" if mask is None else " is_obj"),
+                         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
+                         "launches": launches,
+                         "max_abs_err": errs["warp_alpha_ctx", n, mask is not None], "ms": ms,
+                         "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None})
+        del a, g, o, io
 
         c = 23
         img, grid = k2_inputs(rng, f, h, w, c, tp, h, w, dev)
@@ -438,11 +710,26 @@ def phase_timings(dev, card_name, errs, by_rows):
         nbytes = 4 * (f * p * c + n * p * 2 + n * p * c)
         b_ms, b_by = bound(card_name, nbytes, n * p * (16 + 8 * c))
         rows.append({"name": f"grid_sample_ctx N={n}", "route": "cuda", "source": K2_SOURCE,
-                     "replaces": K2_REPLACES, "launches": by_rows["grid_sample"].get(n, 0),
+                     "replaces": K2_REPLACES, "launches": by_key["grid_sample"][n],
                      "max_abs_err": errs["grid_sample", n], "ms": ms, "plain_ms": plain,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
         del img, grid, rep
         torch.cuda.empty_cache()
+
+    # bias_act at MAT's largest call; no single PyTorch call adds a bias,
+    # activates, scales and clamps
+    x = torch.from_numpy(rng.randn(*K3_SHAPE).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(K3_SHAPE[-1]).astype(np.float32)).to(dev)
+    gain = _ACTS["lrelu"][1]
+    ms = cuda_time(lambda: bias_act_cuda(x, b, "lrelu", gain, None), 20)
+    plain = cuda_time(lambda: bias_act_plain(x, b, -1, "lrelu", gain, None), 5)
+    b_ms, b_by = bound(card_name, 4 * (2 * x.numel() + b.numel()), 3 * x.numel())
+    rows.append({"name": "bias_act " + "x".join(map(str, K3_SHAPE)) + " lrelu", "route": "cuda",
+                 "source": K3_SOURCE, "replaces": K3_REPLACES, "launches": k3_launches,
+                 "max_abs_err": errs["bias_act"], "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None})
+    del x
+    torch.cuda.empty_cache()
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
@@ -455,7 +742,8 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=10, help="timed predicts")
     ap.add_argument("--out", default=None, help="write the full results as JSON here")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace one flagship predict with torch.profiler into DIR")
+                    help="trace one flagship predict and one MAT clip with torch.profiler "
+                         "into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -472,13 +760,16 @@ def main(argv=None):
     build_s = phase_build()
     errs, per_channel = phase_kernels(dev)
     main_res = phase_main(dev, args.iters, args.profile)
-    rows = phase_timings(dev, name, errs, main_res["launches_by_rows"])
+    mat_res = phase_mat(dev, args.profile)
+    rows = phase_timings(dev, name, errs, main_res["launches_by_key"],
+                         mat_res["launches_by_key"], mat_res["launches"]["bias_act"])
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": card_line, "build_s": build_s, "per_channel": per_channel,
-                       "main": main_res, "kernels": rows}, fh, indent=1)
+            json.dump(jsonable({"card": card_line, "build_s": build_s,
+                                "per_channel": per_channel, "main": main_res, "mat": mat_res,
+                                "kernels": rows}), fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

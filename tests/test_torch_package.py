@@ -75,14 +75,36 @@ def test_synthesizer_asks_for_cuda_by_default():
         Synthesizer(tcfg.Config())
 
 
+def test_mat_inpainter_asks_for_cuda_by_default():
+    from waldo_tpu_torch.models.mat import MatInpainter
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MatInpainter(resolution=128)
+
+
+def test_flagship_mat_cfg_is_flagship_plus_test_mat_flags():
+    want = tcfg.to_dict(tcfg.flagship_cfg())
+    flags = ("loop_ii", "inpaint_obj", "propagate_unique", "use_shadows", "use_expansion",
+             "soft_shadow", "propagate_obj", "use_inpainter", "use_mat_inpainter",
+             "restrict_to_ctx")
+    for f in flags:
+        want["model"][f] = True
+    assert tcfg.to_dict(tcfg.flagship_mat_cfg()) == want
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from waldo_tpu_torch.ops.kernels import KERNELS, grid_sample_cuda, warp_alpha_ctx_cuda
+    from waldo_tpu_torch.ops.kernels import (KERNELS, bias_act_cuda, grid_sample_cuda,
+                                             warp_alpha_ctx_cuda)
 
     img = torch.zeros(1, 8, 8, 3)
     with pytest.raises(ValueError, match="CUDA"):
         grid_sample_cuda(img, torch.zeros(1, 4, 4, 2))
     with pytest.raises(ValueError, match="CUDA"):
         warp_alpha_ctx_cuda(img, torch.zeros(1, 3, 4, 4, 2), torch.zeros(1, 3, 3), None, 1, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        bias_act_cuda(img, torch.zeros(3), "lrelu", 1.0, None)
     assert all(k.launches == 0 for k in KERNELS.values())
 
 

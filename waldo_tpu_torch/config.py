@@ -3,7 +3,8 @@
 Field names and defaults match the JAX package one for one (a test holds
 them equal), so a config converts across with ``to_dict``/``from_dict``.
 The CLI parser is not ported yet; ``flagship_cfg`` builds the flagship
-Cityscapes predict configuration directly.
+Cityscapes predict configuration directly and ``flagship_mat_cfg`` the same
+with the MAT inpainting flags of scripts/cityscapes/test_mat.sh.
 """
 from __future__ import annotations
 
@@ -389,4 +390,26 @@ def flagship_cfg() -> Config:
     cfg.compute_dtype = "bfloat16"
     cfg.model.sample_precision = "fast"
     cfg.model.fast_inverse_warp = True
+    return cfg
+
+
+def flagship_mat_cfg() -> Config:
+    """``flagship_cfg()`` with the flags scripts/cityscapes/test_mat.sh sets
+    (the MAT inpainting post-processing: per-frame fusion, reference-frame
+    propagation, soft shadows, off-screen object completion) and
+    ``restrict_to_ctx`` from scripts/cityscapes/test.sh. Load stays at
+    256x512; the inpainter resizes to 512x1024 and runs MAT on 512x512
+    crops."""
+    cfg = flagship_cfg()
+    m = cfg.model
+    m.loop_ii = True
+    m.inpaint_obj = True
+    m.propagate_unique = True
+    m.use_shadows = True
+    m.use_expansion = True
+    m.soft_shadow = True
+    m.propagate_obj = True
+    m.use_inpainter = True
+    m.use_mat_inpainter = True
+    m.restrict_to_ctx = True
     return cfg

@@ -15,6 +15,13 @@ Layout rules (the inverse of waldo_tpu/models/convert.py):
          flipped: the JAX transposed conv correlates its kernel as given,
          torch's ConvTranspose2d the flipped one
   copy   identical shapes (embeddings, norm scale/bias, noise_strength)
+
+``mat_from_jax(variables_np, module)`` does the same for the MAT
+``Generator`` (models/mat) or any of its modules, which carry the flax
+names: the leaf "a/b/weight" of the ``params`` collection fills the port's
+"a.b.weight" (dense (I, O) and conv (kh, kw, I, O) kernels in the layouts
+above), the ``noise_const`` leaf "a/b/n" fills the buffer "a.b.noise_const"
+and the ``w_stats`` leaf "mapping/w_avg" the buffer "mapping.w_avg".
 """
 from __future__ import annotations
 
@@ -212,3 +219,40 @@ def from_jax(params_np, synthesizer) -> None:
             raise KeyError(f"JAX tree has no {net!r} parameters")
         sd = _net_state_dict(module, params_np[net], _RULES[net](synthesizer.cfg), net)
         module.load_state_dict(sd, strict=True)
+
+
+def _mat_leaf(collection: str, path: str, arr) -> Tuple[str, np.ndarray]:
+    parts = path.split("/")
+    if collection == "noise_const":
+        if parts[-1] != "n":
+            raise ValueError(f"unexpected noise_const leaf {path!r}")
+        parts[-1] = "noise_const"
+    kind = "copy"
+    if collection == "params" and parts[-1] == "weight":
+        kind = {2: "dense", 4: "conv"}.get(np.ndim(arr), "copy")
+    return ".".join(parts), _convert_leaf(arr, kind)
+
+
+def mat_from_jax(variables_np, module: torch.nn.Module) -> None:
+    """Load the flax variables of the JAX package's MAT ``Generator``, or of
+    any of its submodules (``params``, ``noise_const``, ``w_stats``; nested
+    dicts of numpy arrays), into the port's module of the same name,
+    strictly (see the module docstring)."""
+    extra = sorted(set(variables_np) - {"params", "noise_const", "w_stats"})
+    if extra:
+        raise ValueError(f"MAT variables have collections the port does not hold: {extra}")
+    own = module.state_dict()
+    new = {}
+    for collection, tree in variables_np.items():
+        for path, arr in _flatten(tree).items():
+            key, value = _mat_leaf(collection, path, arr)
+            if key not in own:
+                raise ValueError(f"MAT leaf {collection}/{path} has no port entry {key!r}")
+            if tuple(value.shape) != tuple(own[key].shape):
+                raise ValueError(f"MAT leaf {collection}/{path} {value.shape} does not fit "
+                                 f"{key} {tuple(own[key].shape)}")
+            new[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    unfilled = sorted(set(own) - set(new))
+    if unfilled:
+        raise ValueError(f"port MAT module has entries no leaf fills: {unfilled[:8]}")
+    module.load_state_dict(new, strict=True)

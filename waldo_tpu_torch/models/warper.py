@@ -9,10 +9,11 @@ Per-layer maps keep the layer axis right after time ((B,T,No+1,H,W,C));
 "squeezed" per-layer alphas put the layers in the channel axis
 ((B,T,H,W,No+1)).
 
-Ported: grid construction, the layer <-> output samples, and the predict
+Ported: grid construction, the layer <-> output samples, the predict
 path's flow synthesis and context fusion (``ctx_uniform=True``, the fused
-alpha_ctx warp). The unfused training branches raise until the training
-slice ports them.
+alpha_ctx warp) and the per-layer flows the MAT post-processing propagates
+along. The unfused training branches raise until the training slice ports
+them.
 """
 from __future__ import annotations
 
@@ -298,3 +299,36 @@ class Warper:
             score = (score + eps) / (score + eps).sum(dim=1, keepdim=True)
             output = (output.float() * score.float()).sum(dim=1)  # B Tp Hd Wd C+1
         return output, raw_output
+
+    # ---- per-layer flows for the MAT propagation ----
+
+    def grid_to_bg_flow_from_ref_to_pred(self, grids: WarpGrids, ctx_len, ref):
+        """Background flow from frame ``ref`` to every predicted frame,
+        (B, Tp, Hd, Wd, 2)."""
+        bg_flow = grids.tgt_bg[:, ref][:, None] - grids.tgt_bg[:, ctx_len:]  # B Tp H W 2
+        g = WarpGrids(None, None, None, grids.src_bg[:, ctx_len:])
+        out = self.bg_to_output(bg_flow, g, delta=0.0)[:, :, 0]
+        if self.scale_hd != 1:
+            out = resize(out, self.scale_hd)
+        return out
+
+    def grid_to_obj_flow_from_ref_to_pred(self, grids: WarpGrids, ctx_len, ref, obj_id):
+        """Flow of object ``obj_id`` from frame ``ref`` to every predicted
+        frame, (B, Tp, Hd, Wd, 2)."""
+        of = grids.tgt_obj[:, ref, obj_id][:, None] - grids.tgt_obj[:, ctx_len:, obj_id]
+        g = WarpGrids(None, grids.src_obj[:, ctx_len:, obj_id][:, :, None], None, None)
+        out = self.obj_to_output(of[:, :, None], g, delta=0.0)[:, :, 0]
+        if self.scale_hd != 1:
+            out = resize(out, self.scale_hd)
+        return out
+
+    def grid_to_bg_flow_from_ctx_to_ref(self, grids: WarpGrids, ctx_len, ref):
+        """Background flow from every context frame to frame ``ref``,
+        (B, Tc, Hd, Wd, 2)."""
+        bg_flow = grids.tgt_bg[:, :ctx_len] - grids.tgt_bg[:, ref][:, None]  # B Tc H W 2
+        src = grids.src_bg[:, ref][:, None].expand((-1, ctx_len) + tuple(grids.src_bg.shape[2:]))
+        g = WarpGrids(None, None, None, src)
+        out = self.bg_to_output(bg_flow, g, delta=0.0)[:, :, 0]
+        if self.scale_hd != 1:
+            out = resize(out, self.scale_hd)
+        return out

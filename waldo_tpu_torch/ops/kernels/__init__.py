@@ -2,11 +2,12 @@
 
 ``KERNELS`` maps a kernel's name to its ``CudaKernel`` (launch count,
 source); ``build_all`` compiles every source in parallel."""
+from .bias_act import BIAS_ACT, bias_act_cuda
 from .build import build
 from .grid_sample import GRID_SAMPLE, grid_sample_cuda
 from .warp_alpha_ctx import WARP_ALPHA_CTX, warp_alpha_ctx_cuda
 
-KERNELS = {"warp_alpha_ctx": WARP_ALPHA_CTX, "grid_sample": GRID_SAMPLE}
+KERNELS = {"warp_alpha_ctx": WARP_ALPHA_CTX, "grid_sample": GRID_SAMPLE, "bias_act": BIAS_ACT}
 
 
 def build_all():

@@ -78,9 +78,10 @@ class CudaKernel:
     """One kernel behind a C entry point: loads its library on first use,
     launches on the caller's stream and counts its launches.
 
-    ``launches`` counts every launch; ``launches_by_rows`` splits the same
-    count by the launch's leading (row) size, so a run can tell apart the
-    calls made at different shapes."""
+    ``launches`` counts every launch; ``launches_by_key`` splits the same
+    count by a key the wrapper gives each launch (the row count, and for the
+    warp whether its ghost mask is given; the activation for bias_act), so a
+    run can tell apart the calls made at different shapes or settings."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
@@ -88,11 +89,11 @@ class CudaKernel:
         self.argtypes = argtypes
         self._lib: Optional[ctypes.CDLL] = None
         self.launches = 0
-        self.launches_by_rows: collections.Counter = collections.Counter()
+        self.launches_by_key: collections.Counter = collections.Counter()
 
     def reset(self) -> None:
         self.launches = 0
-        self.launches_by_rows.clear()
+        self.launches_by_key.clear()
 
     def _load(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -105,11 +106,11 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, rows: int, *args) -> None:
+    def launch(self, key, *args) -> None:
         lib = self._load()
         err = getattr(lib, self.symbol)(*args)
         if err != 0:
             msg = lib.waldo_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err} ({msg})")
         self.launches += 1
-        self.launches_by_rows[rows] += 1
+        self.launches_by_key[key] += 1

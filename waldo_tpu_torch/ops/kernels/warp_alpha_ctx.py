@@ -58,8 +58,9 @@ def warp_alpha_ctx_cuda(alpha: torch.Tensor, grid: torch.Tensor, occ: torch.Tens
     # texels (the texture is F*H*W*C floats, small beside the grid)
     planes = alpha.permute(0, 3, 1, 2).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # launches keyed by (row count, whether the ghost mask rides along)
     WARP_ALPHA_CTX.launch(
-        n, planes.data_ptr(), grid.data_ptr(), occ.data_ptr(),
+        (n, is_obj is not None), planes.data_ptr(), grid.data_ptr(), occ.data_ptr(),
         is_obj.data_ptr() if is_obj is not None else None,
         alpha_occ.data_ptr(), disocc.data_ptr(), flow.data_ptr(),
         h, w, c, n, gh, gw, tp_sz, tcp, stream)
