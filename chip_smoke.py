@@ -9,7 +9,11 @@ Phases, in order; any failure exits non-zero:
   2. build: compiles every CUDA kernel of the port from its sources;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at ragged small shapes (bias_act: all nine
-     activations, with and without bias, gain and clamp);
+     activations, with and without bias, gain and clamp); the samplers'
+     pre-pass (planes and nonzero boxes) for equality; the fused warp and the
+     per-channel sampler on dense and object-sparse inputs and on the skip's
+     edge cases (an all-zero plane, a layer grid wholly out of range, boxes
+     touching each border, a texel reached by one tap only, C=32);
   4. main path: the flagship predict (Cityscapes 256x512, 14 frames with 4
      of context, bf16 nets, "fast" sampling, iterative inversion) with
      seeded random weights; checks the kernel launch counts and the
@@ -23,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      over MAT_CLIPS clips and predicted frames/s, and runs a small float32
      chain (MAT at 128) on the card against the same chain on the CPU;
   6. kernel timings at the main paths' shapes beside their bounds (the warp
-     with and without its ghost mask, as the two paths launch it).
+     with and without its ghost mask, as the two paths launch it, on dense
+     and object-sparse inputs and on the inputs the flagship predict hands
+     it, with their share of zero samples; the pre-pass alone).
 With --profile DIR, phases 4 and 5 also trace one predict and one MAT clip
 with torch.profiler and write the device time per span and per kernel, and
 the device's idle share, to DIR/profile{,_mat}.json and .txt.
@@ -50,9 +56,13 @@ _CARDS = {
 K1_SOURCE = "waldo_tpu_torch/csrc/warp_alpha_ctx.cu"
 K2_SOURCE = "waldo_tpu_torch/csrc/grid_sample.cu"
 K3_SOURCE = "waldo_tpu_torch/csrc/bias_act.cu"
+PRE_SOURCE = "waldo_tpu_torch/csrc/planes.cu"
 K1_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:842"
 K2_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:470"
 K3_REPLACES = "waldo_tpu/ops/pallas/bias_act.py:71"
+# the pre-pass computes on the card what _skip_flags computes for the TPU
+# kernels (and the permute copy K1's wrapper made before)
+PRE_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:555"
 # MAT's largest bias_act call: FirstStage conv_first and the last
 # DecStyleBlock at 512x512, 180 channels
 K3_SHAPE = (1, 512, 512, 180)
@@ -129,15 +139,69 @@ def smooth_grids(rng, rows, layers, gh, gw, dev, hole_frac=0.05):
     return g.reshape(rows, layers, gh, gw, 2).contiguous()
 
 
-def k1_inputs(rng, f, h, w, c, tp, tc, with_io, dev):
+def sparse_alpha(rng, f, h, w, c, dev):
+    """Object-sparse layer alphas (F, H, W, C), as the predict path's are:
+    layer 0 (the background) dense, each object layer nonzero only inside
+    one random rotated rectangle covering 3-8 % of the plane. Built on the
+    device."""
+    import torch
+
+    alpha = torch.zeros(f, h, w, c, device=dev)
+    alpha[..., 0] = torch.from_numpy(rng.rand(f, h, w).astype(np.float32)).to(dev)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None] + 0.5
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :] + 0.5
+    for i in range(f):
+        for k in range(1, c):
+            area = rng.uniform(0.03, 0.08) * h * w
+            aspect, ang = rng.uniform(0.5, 2), rng.uniform(0, np.pi)
+            a, b = np.sqrt(area * aspect) / 2, np.sqrt(area / aspect) / 2
+            r = max(a, b)
+            cy, cx = rng.uniform(r, h - r), rng.uniform(r, w - r)
+            u = (xx - cx) * np.cos(ang) + (yy - cy) * np.sin(ang)
+            v = (yy - cy) * np.cos(ang) - (xx - cx) * np.sin(ang)
+            inside = (u.abs() <= a) & (v.abs() <= b)
+            vals = torch.from_numpy(rng.uniform(0.05, 1.0, (h, w)).astype(np.float32)).to(dev)
+            alpha[i, :, :, k] = vals * inside
+    return alpha
+
+
+def k1_inputs(rng, f, h, w, c, tp, tc, with_io, dev, sparse=False):
     import torch
 
     n = f * tp
-    alpha = rng.rand(f, h, w, c).astype(np.float32)
+    alpha = (sparse_alpha(rng, f, h, w, c, dev) if sparse
+             else torch.from_numpy(rng.rand(f, h, w, c).astype(np.float32)).to(dev))
     occ = rng.rand(n, c, c).astype(np.float32)
     io = (rng.rand((n // (tc * tp)) * tp, c, h, w) > 0.3).astype(np.float32) if with_io else None
     to = lambda a: None if a is None else torch.from_numpy(a).to(dev)
-    return to(alpha), smooth_grids(rng, n, c, h, w, dev), to(occ), to(io)
+    return alpha, smooth_grids(rng, n, c, h, w, dev), to(occ), to(io)
+
+
+def skip_edge_inputs(rng, f, h, w, rows, dev):
+    """Texture (F, H, W, 8) and per-layer grids (F*rows, 8, H, W, 2) for the
+    sparsity skip's edge cases, one per layer: 0 dense; 1 all zero; 2 dense
+    with its grid wholly out of range; 3-6 a nonzero block touching the top,
+    bottom, left and right border; 7 one nonzero texel, sampled half a texel
+    off the pixel centers, so that each of its four neighbouring samples
+    reaches it with one tap only."""
+    import torch
+    from waldo_tpu_torch.ops import get_grid
+
+    tex = torch.zeros(f, h, w, 8, device=dev)
+    tex[..., 0] = torch.from_numpy(rng.rand(f, h, w).astype(np.float32)).to(dev)
+    tex[..., 2] = torch.from_numpy(rng.rand(f, h, w).astype(np.float32) + 0.1).to(dev)
+    blk = lambda *shape: torch.from_numpy(rng.rand(*shape).astype(np.float32) + 0.1).to(dev)
+    tex[:, :3, w // 4: w // 2, 3] = blk(f, 3, w // 2 - w // 4)
+    tex[:, -2:, w // 3: w // 2, 4] = blk(f, 2, w // 2 - w // 3)
+    tex[:, h // 4: h // 2, :2, 5] = blk(f, h // 2 - h // 4, 2)
+    tex[:, h // 3: h // 2, -3:, 6] = blk(f, h // 2 - h // 3, 3)
+    tex[:, h // 2, w // 2, 7] = 0.9
+    n = f * rows
+    grids = smooth_grids(rng, n, 8, h, w, dev)
+    grids[:, 2] += 3.0
+    base = torch.as_tensor(get_grid(h, w), device=dev)
+    grids[:, 7] = base + torch.tensor([1.0 / w, 1.0 / h], device=dev)
+    return tex, grids.contiguous()
 
 
 def k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype=None):
@@ -208,21 +272,32 @@ def phase_build():
 
 def phase_kernels(dev):
     import torch
-    import torch.nn.functional as F
-    from waldo_tpu_torch.ops.grid_sample import (grid_sample_ctx_plain,
-                                                 grid_sample_multigrid_plain,
+    from waldo_tpu_torch.ops.grid_sample import (grid_sample_ctx_plain, plane_boxes_plain,
                                                  warp_alpha_ctx_plain)
-    from waldo_tpu_torch.ops.kernels import grid_sample_cuda, warp_alpha_ctx_cuda
+    from waldo_tpu_torch.ops.kernels import (grid_sample_cuda, plane_boxes_cuda,
+                                             warp_alpha_ctx_cuda)
 
     log("== 3. kernels against their plain versions "
-        f"(tolerance {TOL_F32} float32, {TOL_BF16:.4g} bf16 output)")
+        f"(tolerance {TOL_F32} float32, {TOL_BF16:.4g} bf16 output; the pre-pass exactly)")
     rng = np.random.RandomState(0)
     errs = {}
 
-    def k1_case(label, f, h, w, c, tp, tc, with_io):
-        a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, with_io, dev)
-        got = warp_alpha_ctx_cuda(a, g, o, io, tp, tc * tp)
-        want = warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=tc * tp)
+    def pre_case(label, tex):
+        planes, boxes = plane_boxes_cuda(tex)
+        want_planes, want_boxes = plane_boxes_plain(tex)
+        torch.cuda.synchronize()
+        check(torch.equal(boxes, want_boxes), f"plane_boxes {label}: boxes differ from the plain "
+              f"version at {(boxes != want_boxes).nonzero()[:4].tolist()}")
+        check(torch.equal(planes, want_planes), f"plane_boxes {label}: planes differ")
+        area = ((want_boxes[..., 1] - want_boxes[..., 0] + 1).clamp(min=0)
+                * (want_boxes[..., 3] - want_boxes[..., 2] + 1).clamp(min=0))
+        log(f"plane_boxes {label} {tex.dtype}: planes and boxes equal to the plain version; "
+            f"{int((want_boxes[..., 1] < 0).sum())} of {boxes.shape[0] * boxes.shape[1]} planes "
+            f"empty, boxes cover {float(area.sum()) / planes.numel():.3f} of the texels")
+
+    def k1_check(label, a, g, o, io, tp, tcp):
+        got = warp_alpha_ctx_cuda(a, g, o, io, tp, tcp)
+        want = warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=tcp)
         torch.cuda.synchronize()
         e = max_err(got, want)
         log(f"warp_alpha_ctx {label}: max|err| {e:.3g} (tol {TOL_F32})")
@@ -230,13 +305,34 @@ def phase_kernels(dev):
               f"warp_alpha_ctx {label} disagrees: {e}")
         return e
 
-    for tp in (14, 10):
-        for with_io in (False, True):
-            errs["warp_alpha_ctx", 4 * tp, with_io] = k1_case(
-                f"N={4 * tp} flagship" + (", is_obj" if with_io else ""),
-                4, 256, 512, 17, tp, 4, with_io)
+    def k1_case(label, f, h, w, c, tp, tc, with_io, sparse=False):
+        a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, with_io, dev, sparse)
+        if sparse and not with_io:
+            pre_case(label, a)
+            pre_case(label, a.to(torch.bfloat16))
+        return k1_check(label, a, g, o, io, tp, tc * tp)
+
+    for sparse in (False, True):
+        for tp in (14, 10):
+            for with_io in (False, True):
+                errs["warp_alpha_ctx", 4 * tp, with_io, sparse] = k1_case(
+                    f"N={4 * tp} flagship" + (", object-sparse" if sparse else ", dense")
+                    + (", is_obj" if with_io else ""), 4, 256, 512, 17, tp, 4, with_io, sparse)
+    # one case for each of the kernel's compile-time layer counts (8, 16, 20, 32)
     k1_case("ragged 37x53 C=5, is_obj", 2, 37, 53, 5, 3, 2, True)
+    k1_case("ragged 23x41 C=12, is_obj", 2, 23, 41, 12, 2, 2, True)
+    k1_case("ragged 31x19 C=19", 1, 31, 19, 19, 3, 1, False)
     k1_case("ragged 29x61 C=32", 2, 29, 61, 32, 2, 1, False)
+    k1_case("ragged 29x61 C=32, object-sparse", 2, 29, 61, 32, 2, 1, False, sparse=True)
+    # the skip's edge cases, one per layer (skip_edge_inputs), 2 frames x 3 rows
+    tex, grids = skip_edge_inputs(rng, 2, 37, 53, 3, dev)
+    pre_case("skip edge cases 37x53 C=8", tex)
+    pre_case("skip edge cases 37x53 C=8", tex.to(torch.bfloat16))
+    occ = torch.from_numpy(rng.rand(6, 8, 8).astype(np.float32)).to(dev)
+    io = torch.from_numpy((rng.rand(3, 8, 37, 53) > 0.3).astype(np.float32)).to(dev)
+    for mask in (None, io):
+        k1_check("skip edge cases 37x53 C=8" + (", is_obj" if mask is not None else ""),
+                 tex, grids, occ, mask, 3, 6)
 
     def k2_case(label, f, h, w, c, tp, ho, wo, dtype=None):
         img, grid = k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype)
@@ -255,35 +351,59 @@ def phase_kernels(dev):
     k2_case("ragged 31x45 C=7 -> 19x70", 3, 31, 45, 7, 2, 19, 70)
     k2_case("ragged bf16 31x45 C=7 -> 19x70", 3, 31, 45, 7, 2, 19, 70, torch.bfloat16)
 
-    # per-channel grids (training-path alpha warp shape)
-    img = torch.from_numpy(rng.rand(4, 256, 512, 17).astype(np.float32)).to(dev)
-    grids = smooth_grids(rng, 4, 17, 256, 512, dev)
-    got = grid_sample_cuda(img, grids)
-    want = grid_sample_multigrid_plain(img, grids)
-    torch.cuda.synchronize()
-    e = float((got - want).abs().max())
-    log(f"grid_sample per-channel 4x256x512 C=17: max|err| {e:.3g} (tol {TOL_F32})")
-    check(e <= TOL_F32, f"per-channel grid_sample disagrees: {e}")
-    pc_ms = cuda_time(lambda: grid_sample_cuda(img, grids), 10)
-    pc_plain = cuda_time(lambda: grid_sample_multigrid_plain(img, grids), 3)
-    f, h, w, c = img.shape
-    # one library call for the same function: the channels folded into the
-    # batch, one single-channel texture per grid
-    img_fold = img.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
-    grids_fold = grids.reshape(f * c, h, w, 2)
-    pc_lib = cuda_time(lambda: F.grid_sample(img_fold, grids_fold, mode="bilinear",
-                                             padding_mode="zeros", align_corners=False), 10)
-    pc_bound, pc_by = bound(torch.cuda.get_device_name(0), 4 * (2 * f * h * w * c + f * c * h * w * 2),
-                            f * c * h * w * 24)
-    log(f"grid_sample per-channel 4x256x512 C=17: {pc_ms:.4f} ms (bound {pc_bound:.4f} ms by "
-        f"{pc_by}), plain {pc_plain:.4f} ms, library (F.grid_sample, channels folded into "
-        f"the batch) {pc_lib:.4f} ms")
-    del img, grids, img_fold, grids_fold
-
+    per_channel = phase_kernels_per_channel(dev, rng, tex, grids[::3].contiguous())
     errs["bias_act"] = phase_kernels_bias_act(dev, rng)
-    return errs, {"per_channel_ms": pc_ms, "per_channel_plain_ms": pc_plain,
-                  "per_channel_library_ms": pc_lib, "per_channel_bound_ms": pc_bound,
-                  "per_channel_max_abs_err": e}
+    return errs, per_channel
+
+
+def phase_kernels_per_channel(dev, rng, edge_tex, edge_grids):
+    """K2', the per-channel grid sample (the training-path alpha warp): dense
+    and object-sparse at 4x256x512, C=17, timed beside one F.grid_sample call
+    on the channel-folded texture, then the skip's edge cases, bf16 and C=32."""
+    import torch
+    import torch.nn.functional as F
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_multigrid_plain
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda
+
+    def case(label, img, grids):
+        got = grid_sample_cuda(img, grids)
+        want = grid_sample_multigrid_plain(img.float(), grids).to(img.dtype)
+        torch.cuda.synchronize()
+        tol = TOL_F32 if img.dtype == torch.float32 else TOL_BF16
+        e = float((got.float() - want.float()).abs().max())
+        log(f"grid_sample per-channel {label} {img.dtype}: max|err| {e:.3g} (tol {tol:.3g})")
+        check(got.dtype == img.dtype and e <= tol and bool(torch.isfinite(got).all()),
+              f"per-channel grid_sample {label} disagrees: {e}")
+        return e
+
+    res = {}
+    f, h, w, c = 4, 256, 512, 17
+    for kind in ("dense", "sparse"):
+        img = (sparse_alpha(rng, f, h, w, c, dev) if kind == "sparse"
+               else torch.from_numpy(rng.rand(f, h, w, c).astype(np.float32)).to(dev))
+        grids = smooth_grids(rng, f, c, h, w, dev)
+        e = case(f"4x256x512 C=17 {kind}", img, grids)
+        ms = cuda_time(lambda: grid_sample_cuda(img, grids), 20)
+        plain = cuda_time(lambda: grid_sample_multigrid_plain(img, grids), 3)
+        # one library call for the same function: the channels folded into
+        # the batch, one single-channel texture per grid
+        img_fold = img.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
+        grids_fold = grids.reshape(f * c, h, w, 2)
+        lib = cuda_time(lambda: F.grid_sample(img_fold, grids_fold, mode="bilinear",
+                                              padding_mode="zeros", align_corners=False), 20)
+        b_ms, b_by = bound(torch.cuda.get_device_name(0),
+                           4 * (2 * f * h * w * c + f * c * h * w * 2), f * c * h * w * 24)
+        log(f"grid_sample per-channel 4x256x512 C=17 {kind}: {ms:.4f} ms (bound {b_ms:.4f} ms "
+            f"by {b_by}, {b_ms / ms:.0%} of it), plain {plain:.4f} ms, library (F.grid_sample, "
+            f"channels folded into the batch) {lib:.4f} ms")
+        res[kind] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": e}
+        del img, grids, img_fold, grids_fold
+    case("skip edge cases 37x53 C=8", edge_tex, edge_grids)
+    case("skip edge cases 37x53 C=8", edge_tex.to(torch.bfloat16), edge_grids)
+    case("ragged 29x61 C=32 object-sparse", sparse_alpha(rng, 2, 29, 61, 32, dev),
+         smooth_grids(rng, 2, 32, 29, 61, dev))
+    return res
 
 
 def phase_kernels_bias_act(dev, rng):
@@ -459,10 +579,12 @@ def phase_main(dev, iters, profile_dir=None):
     launches, by_key = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"launches in one predict: {launches} by key {by_key}")
-    check(launches == {"warp_alpha_ctx": 2, "grid_sample": 2, "bias_act": 0},
-          f"expected 2 launches of the warp and the sampler per predict, got {launches}")
+    check(launches == {"warp_alpha_ctx": 2, "grid_sample": 2, "bias_act": 0, "plane_boxes": 2},
+          f"expected 2 launches of the warp, its pre-pass and the sampler per predict, "
+          f"got {launches}")
     check(by_key["warp_alpha_ctx"] == {(56, False): 1, (40, False): 1}
-          and by_key["grid_sample"] == {56: 1, 40: 1}, f"unexpected launch shapes {by_key}")
+          and by_key["grid_sample"] == {56: 1, 40: 1} and by_key["plane_boxes"] == {4: 2},
+          f"unexpected launch shapes {by_key}")
 
     t, ctx = cfg.data.vid_len, cfg.model.ctx_len
     shapes = {"rec_vid": (1, t, 256, 512, 3), "inp_rec_vid": (1, t, 256, 512, 3),
@@ -482,6 +604,7 @@ def phase_main(dev, iters, profile_dir=None):
     log(f"predict: {ms:.2f} ms per call over {iters} calls -> {fps:.3f} predicted frames/s; "
         f"peak memory {peak_gb:.2f} GB")
     prof = phase_profile(lambda: syn.predict(batch), profile_dir, "") if profile_dir else None
+    k1_inputs_seen = capture_warp_inputs(syn, batch)
     del out, syn
     torch.cuda.empty_cache()
 
@@ -496,7 +619,27 @@ def phase_main(dev, iters, profile_dir=None):
     log(f"small float32 predict, card vs CPU: max|err| {err:.3g} (tol 1e-3)")
     check(err <= 1e-3, f"small predict on the card disagrees with the CPU: {err}")
     return {"ms_per_predict": ms, "fps": fps, "peak_gb": peak_gb, "launches": launches,
-            "launches_by_key": by_key, "small_predict_err": err, "profile": prof}
+            "launches_by_key": by_key, "small_predict_err": err, "profile": prof}, k1_inputs_seen
+
+
+def capture_warp_inputs(syn, batch):
+    """The (alpha, grid, occ, is_obj, tp_sz, tcp) of every fused warp call
+    in one predict, copied, for phase 6 to time the kernel on them."""
+    from waldo_tpu_torch.models import warper
+
+    seen, fused = [], warper.warp_alpha_ctx
+
+    def capturing(alpha, grids, occ, is_obj, *, tp_sz, tcp):
+        seen.append(tuple(None if t is None else t.float().contiguous().clone()
+                          for t in (alpha, grids, occ, is_obj)) + (tp_sz, tcp))
+        return fused(alpha, grids, occ, is_obj, tp_sz=tp_sz, tcp=tcp)
+
+    warper.warp_alpha_ctx = capturing
+    try:
+        syn.predict(batch)
+    finally:
+        warper.warp_alpha_ctx = fused
+    return seen
 
 
 def mat_clip(cfg, syn, inpainter, batch):
@@ -564,12 +707,15 @@ def phase_mat(dev, profile_dir=None):
     # models/mat/basic.py)
     x0 = torch.zeros(1, 512, 512, 3, device=dev)
     m0 = torch.ones(1, 512, 512, 1, device=dev)
-    strided = []
+    strided, k3_bytes = [], [0]
 
-    def counting_bias_act(x, *args, **kwargs):
+    def counting_bias_act(x, b=None, *args, **kwargs):
+        """bias_act, noting strided inputs and the bytes each call must move
+        (x read and y written once, the bias read once)."""
         if not x.is_contiguous():
             strided.append(tuple(x.shape))
-        return bias_act(x, *args, **kwargs)
+        k3_bytes[0] += x.element_size() * 2 * x.numel() + (0 if b is None else 4 * b.numel())
+        return bias_act(x, b, *args, **kwargs)
 
     with torch.inference_mode():
         reset_launches()
@@ -583,13 +729,19 @@ def phase_mat(dev, profile_dir=None):
     log(f"one MAT Generator forward at 512x512: {per_forward} bias_act launches "
         f"({len(strided)} of them on a strided input, copied first: {strided[:8]}), "
         f"{gen_ms:.2f} ms")
+    strided_per_forward = len(strided)
     mat_clip(cfg, syn, inp, batch)  # warm-up
     torch.cuda.synchronize()
 
     inp.calls = 0
+    k3_bytes[0] = 0
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    out = mat_clip(cfg, syn, inp, batch)
+    mat_basic.bias_act = counting_bias_act
+    try:
+        out = mat_clip(cfg, syn, inp, batch)
+    finally:
+        mat_basic.bias_act = bias_act
     torch.cuda.synchronize()
     launches, by_key = read_launches()
     forwards = inp.calls
@@ -599,10 +751,14 @@ def phase_mat(dev, profile_dir=None):
     check(by_key["warp_alpha_ctx"] == {(56, True): 1, (40, True): 1},
           f"the warp did not run with its ghost mask at N=56 and N=40: {by_key}")
     check(by_key["grid_sample"] == {56: 1, 40: 1}, f"unexpected sampler launches {by_key}")
+    check(by_key["plane_boxes"] == {4: 2}, f"the warp's pre-pass did not run twice: {by_key}")
     check(forwards % 3 == 0 and 11 <= forwards // 3 <= 13,
           f"expected 11-13 inpainter calls of 3 crops, got {forwards} forwards")
     check(launches["bias_act"] > 0 and launches["bias_act"] == per_forward * forwards,
           f"bias_act launched {launches['bias_act']} times, not {per_forward} x {forwards}")
+    k3_bound_ms, _ = bound(torch.cuda.get_device_name(0), k3_bytes[0], 0)
+    log(f"bias_act in one clip: {launches['bias_act']} launches moving {k3_bytes[0] / 1e9:.4f} GB: "
+        f"bound {k3_bound_ms:.4f} ms per clip")
 
     t, ctx = cfg.data.vid_len, cfg.model.ctx_len
     check(tuple(out.shape) == (1, t, 256, 512, 3), f"inp_pred_vid shape {tuple(out.shape)}")
@@ -621,7 +777,7 @@ def phase_mat(dev, profile_dir=None):
         k3 = sum(k["ms"] for k in prof["all_kernels"] if "bias_act" in k["name"])
         prof["bias_act_share"] = k3 / prof["kernel_ms"]
         log(f"bias_act: {k3:.2f} ms of {prof['kernel_ms']:.2f} ms kernel time "
-            f"({prof['bias_act_share']:.3f})")
+            f"({prof['bias_act_share']:.3f}), against its bound of {k3_bound_ms:.4f} ms per clip")
     del out, syn, inp
     torch.cuda.empty_cache()
 
@@ -656,17 +812,21 @@ def phase_mat(dev, profile_dir=None):
           f"small MAT chain on the card disagrees with the CPU: {err}")
     return {"ms_per_clip": ms, "fps": fps, "peak_gb": peak_gb, "launches": launches,
             "launches_by_key": by_key, "mat_forwards": forwards,
-            "bias_act_per_forward": per_forward, "bias_act_strided_inputs": len(strided),
+            "bias_act_per_forward": per_forward, "bias_act_strided_inputs": strided_per_forward,
+            "bias_act_bytes_per_clip": k3_bytes[0], "bias_act_bound_ms_per_clip": k3_bound_ms,
             "generator_ms": gen_ms,
             "small_chain_err": err, "small_chain_scale": scale, "profile": prof}
 
 
-def phase_timings(dev, card_name, errs, by_key, mat_by_key, k3_launches):
+def phase_timings(dev, card_name, errs, by_key, mat_by_key, launches, k3_launches, k1_seen):
     import torch
     import torch.nn.functional as F
     from waldo_tpu_torch.ops.bias_act import _ACTS, bias_act_plain
-    from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain, warp_alpha_ctx_plain
-    from waldo_tpu_torch.ops.kernels import bias_act_cuda, grid_sample_cuda, warp_alpha_ctx_cuda
+    from waldo_tpu_torch.ops.grid_sample import (grid_sample_ctx_plain,
+                                                 grid_sample_multigrid_plain, plane_boxes_plain,
+                                                 tap_footprint_skips, warp_alpha_ctx_plain)
+    from waldo_tpu_torch.ops.kernels import (PLANE_BOXES, bias_act_cuda, grid_sample_cuda,
+                                             plane_boxes_cuda, warp_alpha_ctx_cuda)
 
     log("== 6. kernel timings at the main paths' shapes")
     bw, fp32 = card_rates(card_name)
@@ -674,31 +834,38 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, k3_launches):
     rng = np.random.RandomState(1)
     rows = []
 
+    def k1_row(label, a, g, o, mask, tp, tcp, n_launches, err):
+        f, h, w, c = a.shape
+        n, _, gh, gw, _ = g.shape
+        ms = cuda_time(lambda: warp_alpha_ctx_cuda(a, g, o, mask, tp, tcp), 20)
+        plain = cuda_time(lambda: warp_alpha_ctx_plain(a, g, o, mask, tp_sz=tp, tcp=tcp), 3)
+        p = gh * gw
+        nbytes = 4 * (f * h * w * c + n * c * p * 2 + n * c * c + n * p * (c + 3))
+        nops = n * p * (3 * c * c + 32 * c)
+        if mask is not None:  # the mask rows the launch reads, and a multiply per sample
+            nbytes += 4 * (n // tcp) * tp * c * p
+            nops += n * p * c
+        b_ms, b_by = bound(card_name, nbytes, nops)
+        rows.append({"name": label, "route": "cuda", "source": K1_SOURCE,
+                     "replaces": K1_REPLACES, "launches": n_launches, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+
     for tp in (14, 10):
         f, h, w, c, tc = 4, 256, 512, 17, 4
         n, p = f * tp, h * w
-        a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, True, dev)
-        # without the ghost mask as the predict launches it, with it as the
-        # MAT path (restrict_to_ctx) does; the mask adds its bytes and a
-        # multiply per sample
-        for mask, launches in ((None, by_key["warp_alpha_ctx"][n, False]),
-                               (io, mat_by_key["warp_alpha_ctx"][n, True])):
-            ms = cuda_time(lambda: warp_alpha_ctx_cuda(a, g, o, mask, tp, tc * tp), 20)
-            plain = cuda_time(lambda: warp_alpha_ctx_plain(a, g, o, mask, tp_sz=tp, tcp=tc * tp),
-                              3)
-            nbytes = 4 * (f * p * c + n * c * p * 2 + n * c * c + n * p * (c + 3))
-            nops = n * p * (3 * c * c + 32 * c)
-            if mask is not None:
-                nbytes += 4 * mask.numel()
-                nops += n * p * c
-            b_ms, b_by = bound(card_name, nbytes, nops)
-            rows.append({"name": f"warp_alpha_ctx N={n}" + ("" if mask is None else " is_obj"),
-                         "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-                         "launches": launches,
-                         "max_abs_err": errs["warp_alpha_ctx", n, mask is not None], "ms": ms,
-                         "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": None})
-        del a, g, o, io
+        # dense random alphas, and object-sparse ones (layer 0 dense, each
+        # object one quad); without the ghost mask as the predict launches
+        # the warp, with it as the MAT path (restrict_to_ctx) does
+        for sparse in (False, True):
+            a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, True, dev, sparse)
+            for mask, n_launches in ((None, by_key["warp_alpha_ctx"][n, False]),
+                                     (io, mat_by_key["warp_alpha_ctx"][n, True])):
+                k1_row(f"warp_alpha_ctx N={n}" + (" object-sparse" if sparse else "")
+                       + ("" if mask is None else " is_obj"), a, g, o, mask, tp, tc * tp,
+                       n_launches, errs["warp_alpha_ctx", n, mask is not None, sparse])
+            del a, g, o, io
+            torch.cuda.empty_cache()
 
         c = 23
         img, grid = k2_inputs(rng, f, h, w, c, tp, h, w, dev)
@@ -715,6 +882,61 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, k3_launches):
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
         del img, grid, rep
         torch.cuda.empty_cache()
+
+    # the warp on the exact inputs the flagship predict handed it, with
+    # their share of zero (pixel, layer) samples and of samples the box
+    # test skips
+    zero_shares = []
+    for a, g, o, io, tp, tcp in k1_seen:
+        n, c, gh, gw, _ = g.shape
+        got = warp_alpha_ctx_cuda(a, g, o, io, tp, tcp)
+        err = max_err(got, warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=tcp))
+        check(err <= TOL_F32, f"warp_alpha_ctx on the flagship predict's inputs disagrees: {err}")
+        del got
+        _, boxes = plane_boxes_plain(a)
+        frame = torch.arange(n, device=dev) // tp
+        skip = float(tap_footprint_skips(g, boxes[frame], a.shape[1], a.shape[2]).float().mean())
+        sam = grid_sample_multigrid_plain(a.repeat_interleave(tp, dim=0), g)
+        zero = float((sam == 0).float().mean())
+        zero_obj = float((sam[..., 1:] == 0).float().mean())
+        del sam
+        box_area = ((boxes[..., 1] - boxes[..., 0] + 1).clamp(min=0)
+                    * (boxes[..., 3] - boxes[..., 2] + 1).clamp(min=0)).float()
+        box_share = float(box_area.mean()) / (a.shape[1] * a.shape[2])
+        log(f"warp_alpha_ctx N={n} on the flagship predict's inputs: max|err| {err:.3g}; zero "
+            f"samples {zero:.4f} of all (pixel, layer), {zero_obj:.4f} of the object layers'; "
+            f"the box test skips {skip:.4f}; boxes cover {box_share:.4f} of a plane on average")
+        zero_shares.append({"n": n, "zero_share": zero, "zero_share_objects": zero_obj,
+                            "skip_share": skip})
+        k1_row(f"warp_alpha_ctx N={n} flagship inputs" + ("" if io is None else " is_obj"),
+               a, g, o, io, tp, tcp, by_key["warp_alpha_ctx"][n, io is not None], err)
+        torch.cuda.empty_cache()
+
+    # the pre-pass alone, on the flagship warp's texture shape. Its ~0.03 ms
+    # on the card is close to the host's cost of one wrapper call (checks,
+    # two allocations, the launch), so the kernel is timed launched into
+    # outputs made once, and the wrapper's time is logged beside it. One
+    # permute copy (what the warp's wrapper did before) is logged as a
+    # yardstick: it computes the planes but not the boxes.
+    tex = sparse_alpha(rng, 4, 256, 512, 17, dev)
+    got = plane_boxes_cuda(tex)
+    want = plane_boxes_plain(tex)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, want)), "plane_boxes disagrees")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = cuda_time(lambda: PLANE_BOXES.launch(None, tex.data_ptr(), got[0].data_ptr(),
+                                              got[1].data_ptr(), *tex.shape, 0, stream), 100)
+    wrapper_ms = cuda_time(lambda: plane_boxes_cuda(tex), 100)
+    plain = cuda_time(lambda: plane_boxes_plain(tex), 5)
+    copy_ms = cuda_time(lambda: tex.permute(0, 3, 1, 2).contiguous(), 100)
+    b_ms, b_by = bound(card_name, 2 * tex.numel() * 4 + want[1].numel() * 4, tex.numel())
+    log(f"plane_boxes 4x256x512x17: through its wrapper {wrapper_ms:.4f} ms; permute copy "
+        f"alone {copy_ms:.4f} ms")
+    rows.append({"name": "plane_boxes 4x256x512x17", "route": "cuda", "source": PRE_SOURCE,
+                 "replaces": PRE_REPLACES, "launches": launches["plane_boxes"],
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None})
+    del tex, got, want
 
     # bias_act at MAT's largest call; no single PyTorch call adds a bias,
     # activates, scales and clamps
@@ -734,7 +956,7 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, k3_launches):
         log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
             f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms")
-    return rows
+    return rows, zero_shares
 
 
 def main(argv=None):
@@ -759,17 +981,20 @@ def main(argv=None):
     name, card_line = phase_device()
     build_s = phase_build()
     errs, per_channel = phase_kernels(dev)
-    main_res = phase_main(dev, args.iters, args.profile)
+    main_res, k1_seen = phase_main(dev, args.iters, args.profile)
     mat_res = phase_mat(dev, args.profile)
-    rows = phase_timings(dev, name, errs, main_res["launches_by_key"],
-                         mat_res["launches_by_key"], mat_res["launches"]["bias_act"])
+    rows, zero_shares = phase_timings(dev, name, errs, main_res["launches_by_key"],
+                                      mat_res["launches_by_key"], main_res["launches"],
+                                      mat_res["launches"]["bias_act"], k1_seen)
+    del k1_seen
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(jsonable({"card": card_line, "build_s": build_s,
                                 "per_channel": per_channel, "main": main_res, "mat": mat_res,
-                                "kernels": rows}), fh, indent=1)
+                                "flagship_warp_inputs": zero_shares, "kernels": rows}),
+                      fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

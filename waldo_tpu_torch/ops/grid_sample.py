@@ -9,7 +9,10 @@ Layout: image (B, H, W, C), grid (B, Ho, Wo, 2) with (x, y) in [-1, 1].
 predict path. For each of those three the plain PyTorch version sits here
 (``*_plain``) and a CUDA tensor goes to the hand-written kernel
 (ops/kernels): there is no fallback from a CUDA tensor to the plain
-version. The kernels and the plain versions compute in float32: the JAX
+version. ``plane_boxes_plain`` is the plain version of the pre-pass that
+feeds the per-layer samples of both kernels, and ``tap_footprint_skips`` the
+kernels' exact test for a sample that is 0 without reading a texel (the
+TPU kernels' sparsity skip). The kernels and the plain versions compute in float32: the JAX
 signatures' ``precision`` has no counterpart here, since "fast" sampling
 only decides where the callers store bf16 maps.
 """
@@ -31,6 +34,39 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     out = F.grid_sample(img.permute(0, 3, 1, 2).float(), grid.float(),
                         mode="bilinear", padding_mode="zeros", align_corners=False)
     return out.permute(0, 2, 3, 1).to(img.dtype)
+
+
+def plane_boxes_plain(tex: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The samplers' pre-pass (csrc/planes.cu): tex (F, H, W, C) -> (planes
+    (F, C, H, W) in tex's dtype, boxes (F, C, 4) int32), each plane's
+    inclusive nonzero box (y0, y1, x0, x1), or (H, -1, W, -1) where the plane
+    is all zero. A NaN counts as nonzero, -0.0 as zero."""
+    planes = tex.permute(0, 3, 1, 2).contiguous()
+    nz = planes != 0
+
+    def span(any_along):
+        idx = torch.arange(any_along.shape[-1], device=tex.device)
+        return (torch.where(any_along, idx, any_along.shape[-1]).amin(dim=-1),
+                torch.where(any_along, idx, -1).amax(dim=-1))
+
+    y0, y1 = span(nz.any(dim=3))
+    x0, x1 = span(nz.any(dim=2))
+    return planes, torch.stack([y0, y1, x0, x1], dim=-1).to(torch.int32)
+
+
+def tap_footprint_skips(grids: torch.Tensor, boxes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The kernels' sparsity test, in plain PyTorch: grids (R, C, gh, gw, 2)
+    sampling planes of size h x w whose nonzero boxes are boxes (R, C, 4).
+    True where the 2x2 bilinear footprint of a (row, layer, pixel) sample
+    misses its plane's box, so that the sample is exactly 0 and the kernels
+    read no texel for it (csrc/bilinear.cuh: top_left_tap, misses_box)."""
+    def top_left(g, size):
+        i = (g + 1.0) * (size * 0.5) - 0.5
+        return torch.floor(i.clamp(-2.0, size + 1.0)).to(torch.int32)
+
+    x0, y0 = top_left(grids[..., 0].float(), w), top_left(grids[..., 1].float(), h)
+    b = boxes[:, :, None, None, :]
+    return (x0 + 1 < b[..., 2]) | (x0 > b[..., 3]) | (y0 + 1 < b[..., 0]) | (y0 > b[..., 1])
 
 
 def grid_sample_multigrid_plain(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,11 @@ source); ``build_all`` compiles every source in parallel."""
 from .bias_act import BIAS_ACT, bias_act_cuda
 from .build import build
 from .grid_sample import GRID_SAMPLE, grid_sample_cuda
+from .planes import PLANE_BOXES, plane_boxes_cuda
 from .warp_alpha_ctx import WARP_ALPHA_CTX, warp_alpha_ctx_cuda
 
-KERNELS = {"warp_alpha_ctx": WARP_ALPHA_CTX, "grid_sample": GRID_SAMPLE, "bias_act": BIAS_ACT}
+KERNELS = {"warp_alpha_ctx": WARP_ALPHA_CTX, "grid_sample": GRID_SAMPLE, "bias_act": BIAS_ACT,
+           "plane_boxes": PLANE_BOXES}
 
 
 def build_all():

@@ -3,8 +3,9 @@
 Each source under ``waldo_tpu_torch/csrc/`` is compiled on its own by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes``. Libraries go to ``build/waldo_tpu_torch/`` at the
-repository root, named by a digest of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is compiled at
+repository root, named by a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an unchanged
+one is reused. Nothing is compiled at
 import time: a kernel builds on its first launch, or all of them at once
 (one ``nvcc`` process each, in parallel) through ``build_all``.
 """
@@ -44,7 +45,8 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (SRC_DIR / source).read_bytes()
+    # the digest covers the shared headers too, which any source may include
+    src = b"".join(p.read_bytes() for p in [SRC_DIR / source, *sorted(SRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 

@@ -10,11 +10,12 @@ import ctypes
 import torch
 
 from .build import CudaKernel
+from .planes import MAX_CHANNELS, plane_boxes_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 GRID_SAMPLE = CudaKernel(
     "grid_sample.cu", "waldo_grid_sample",
-    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 
 _MAX_ROWS = 65535  # rows ride the launch grid's y dimension
 
@@ -22,7 +23,7 @@ _MAX_ROWS = 65535  # rows ride the launch grid's y dimension
 def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor, tp_sz: int = 1) -> torch.Tensor:
     """img (F, H, W, C) float32 or bfloat16 on a CUDA device; grid float32,
     either shared (F*tp_sz, Ho, Wo, 2), row i reading texture i // tp_sz, or
-    per-channel (F, C, Ho, Wo, 2) with tp_sz 1. Returns (rows, Ho, Wo, C) in
+    per-channel (F, C, Ho, Wo, 2) with tp_sz 1 and C <= 32. Returns (rows, Ho, Wo, C) in
     img's dtype: bilinear, zero padding, align_corners=False."""
     if not (img.is_cuda and grid.is_cuda and img.device == grid.device):
         raise ValueError(f"grid_sample_cuda needs both tensors on one CUDA device, "
@@ -40,6 +41,8 @@ def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor, tp_sz: int = 1) -> t
     if per_channel and (tp_sz != 1 or grid.shape[1] != c or rows != f):
         raise ValueError(f"per-channel grids must be (F, C, Ho, Wo, 2) with tp_sz 1, "
                          f"got {tuple(grid.shape)} for img {tuple(img.shape)}, tp_sz {tp_sz}")
+    if per_channel and c > MAX_CHANNELS:
+        raise ValueError(f"per-channel grids take at most {MAX_CHANNELS} channels, got {c}")
     if not per_channel and rows != f * tp_sz:
         raise ValueError(f"grid rows {rows} != texture rows {f} * tp_sz {tp_sz}")
     if rows > _MAX_ROWS:
@@ -49,8 +52,14 @@ def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor, tp_sz: int = 1) -> t
     out = torch.empty((rows, ho, wo, c), dtype=img.dtype, device=img.device)
     if out.numel() == 0:
         return out
+    tex, boxes = img, None
+    if per_channel:
+        # one plane per channel, so that a warp's taps read neighbouring
+        # texels of one plane, and the boxes that let the kernel skip samples
+        tex, boxes = plane_boxes_cuda(img)
     stream = torch.cuda.current_stream(img.device).cuda_stream
-    GRID_SAMPLE.launch(rows, img.data_ptr(), grid.data_ptr(), out.data_ptr(),
+    GRID_SAMPLE.launch(rows, tex.data_ptr(), None if boxes is None else boxes.data_ptr(),
+                       grid.data_ptr(), out.data_ptr(),
                        h, w, c, rows, ho, wo, tp_sz, int(per_channel),
                        int(img.dtype == torch.bfloat16), stream)
     return out

@@ -8,14 +8,14 @@ from typing import Optional, Tuple
 import torch
 
 from .build import CudaKernel
+from .planes import plane_boxes_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 WARP_ALPHA_CTX = CudaKernel(
     "warp_alpha_ctx.cu", "waldo_warp_alpha_ctx",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 
-MAX_LAYERS = 32  # the kernel sizes its shared-memory layer rows for 32
-_MAX_ROWS = 65535
+MAX_LAYERS = 32  # the kernel keeps a pixel's layers in registers, at most 32
 
 
 def warp_alpha_ctx_cuda(alpha: torch.Tensor, grid: torch.Tensor, occ: torch.Tensor,
@@ -44,24 +44,23 @@ def warp_alpha_ctx_cuda(alpha: torch.Tensor, grid: torch.Tensor, occ: torch.Tens
         raise ValueError(f"bad is_obj shape {tuple(is_obj.shape)}")
     if c > MAX_LAYERS:
         raise ValueError(f"warp_alpha_ctx_cuda takes at most {MAX_LAYERS} layers, got {c}")
-    if n > _MAX_ROWS:
-        raise ValueError(f"warp_alpha_ctx_cuda takes at most {_MAX_ROWS} rows, got {n}")
-    if max(gh * gw, h * w) * c >= 2 ** 31:
-        raise ValueError("warp_alpha_ctx_cuda indexes one row's planes and output in 32 bits")
+    if max(gh * gw, h * w) * c >= 2 ** 31 or n * -(-gh * gw // 128) >= 2 ** 31:
+        raise ValueError("warp_alpha_ctx_cuda indexes one row's planes and output, and its "
+                         "tiles, in 32 bits")
     dev = alpha.device
     alpha_occ = torch.empty((n, gh, gw, c), dtype=torch.float32, device=dev)
     disocc = torch.empty((n, gh, gw, 1), dtype=torch.float32, device=dev)
     flow = torch.empty((n, gh, gw, 2), dtype=torch.float32, device=dev)
     if alpha_occ.numel() == 0:
         return alpha_occ, disocc, flow
-    # one plane per layer: a warp's taps of one layer then read neighbouring
-    # texels (the texture is F*H*W*C floats, small beside the grid)
-    planes = alpha.permute(0, 3, 1, 2).contiguous()
+    # one plane per layer, so that a warp's taps of one layer read
+    # neighbouring texels, and the boxes that let the kernel skip samples
+    planes, boxes = plane_boxes_cuda(alpha)
     stream = torch.cuda.current_stream(dev).cuda_stream
     # launches keyed by (row count, whether the ghost mask rides along)
     WARP_ALPHA_CTX.launch(
-        (n, is_obj is not None), planes.data_ptr(), grid.data_ptr(), occ.data_ptr(),
-        is_obj.data_ptr() if is_obj is not None else None,
+        (n, is_obj is not None), planes.data_ptr(), boxes.data_ptr(), grid.data_ptr(),
+        occ.data_ptr(), is_obj.data_ptr() if is_obj is not None else None,
         alpha_occ.data_ptr(), disocc.data_ptr(), flow.data_ptr(),
         h, w, c, n, gh, gw, tp_sz, tcp, stream)
     return alpha_occ, disocc, flow
