@@ -29,10 +29,22 @@ Phases, in order; any failure exits non-zero:
   6. kernel timings at the main paths' shapes beside their bounds (the warp
      with and without its ghost mask, as the two paths launch it, on dense
      and object-sparse inputs and on the inputs the flagship predict hands
-     it, with their share of zero samples; the pre-pass alone).
-With --profile DIR, phases 4 and 5 also trace one predict and one MAT clip
-with torch.profiler and write the device time per span and per kernel, and
-the device's idle share, to DIR/profile{,_mat}.json and .txt.
+     it, with their share of zero samples; the pre-pass alone);
+  7. training path (scripts/cityscapes/train_lvd.sh, LVD): its flags parsed
+     by the port's parse_cli, on synthetic clips, at full width (B=8, 14
+     frames of 128x256, embed 512, 16 objects, the scatter inversion);
+     Trainer.run for a few iterations (launch counts: each sample's forward
+     and backward kernel and the pre-pass once a step; finite loss, no
+     skipped step, parameters moved, the latest checkpoint restores equal),
+     ms per step and clips/s on one fixed batch, peak memory; the two
+     samples' forward and backward kernels against their plain versions at
+     the path's shapes (dense and object-sparse inputs, an all-zero plane,
+     grids on the pixel lattice and wholly out of range) and timed beside
+     their bounds and ATen's backward; a small float32 step, card vs CPU.
+With --profile DIR, phases 4, 5 and 7 also trace one predict, one MAT clip
+and one training step with torch.profiler and write the device time per
+span and per kernel, and the device's idle share, to
+DIR/profile{,_mat,_train}.json and .txt.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -41,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -60,6 +73,14 @@ PRE_SOURCE = "waldo_tpu_torch/csrc/planes.cu"
 K1_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:842"
 K2_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:470"
 K3_REPLACES = "waldo_tpu/ops/pallas/bias_act.py:71"
+BWD_SOURCE = "waldo_tpu_torch/csrc/grid_sample_bwd.cu"
+# the backwards replace the VJPs the JAX package attaches to grid_sample_pallas
+# in its two modes (_pallas_bwd and _pallas_mg_bwd, XLA code on the TPU)
+K2_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:166"
+K2PC_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:219"
+TRAIN_SCRIPT = "scripts/cityscapes/train_lvd.sh"
+TRAIN_ITERS = 3  # Trainer.run iterations of the training phase
+TRAIN_TIMED = 5  # timed steps on one fixed batch
 # the pre-pass computes on the card what _skip_flags computes for the TPU
 # kernels (and the permute copy K1's wrapper made before)
 PRE_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:555"
@@ -363,10 +384,10 @@ def phase_kernels_per_channel(dev, rng, edge_tex, edge_grids):
     import torch
     import torch.nn.functional as F
     from waldo_tpu_torch.ops.grid_sample import grid_sample_multigrid_plain
-    from waldo_tpu_torch.ops.kernels import grid_sample_cuda
+    from waldo_tpu_torch.ops.kernels import grid_sample_per_channel_cuda
 
     def case(label, img, grids):
-        got = grid_sample_cuda(img, grids)
+        got = grid_sample_per_channel_cuda(img, grids)[0]
         want = grid_sample_multigrid_plain(img.float(), grids).to(img.dtype)
         torch.cuda.synchronize()
         tol = TOL_F32 if img.dtype == torch.float32 else TOL_BF16
@@ -383,7 +404,7 @@ def phase_kernels_per_channel(dev, rng, edge_tex, edge_grids):
                else torch.from_numpy(rng.rand(f, h, w, c).astype(np.float32)).to(dev))
         grids = smooth_grids(rng, f, c, h, w, dev)
         e = case(f"4x256x512 C=17 {kind}", img, grids)
-        ms = cuda_time(lambda: grid_sample_cuda(img, grids), 20)
+        ms = cuda_time(lambda: grid_sample_per_channel_cuda(img, grids), 20)
         plain = cuda_time(lambda: grid_sample_multigrid_plain(img, grids), 3)
         # one library call for the same function: the channels folded into
         # the batch, one single-channel texture per grid
@@ -579,7 +600,9 @@ def phase_main(dev, iters, profile_dir=None):
     launches, by_key = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"launches in one predict: {launches} by key {by_key}")
-    check(launches == {"warp_alpha_ctx": 2, "grid_sample": 2, "bias_act": 0, "plane_boxes": 2},
+    check(launches == {"warp_alpha_ctx": 2, "grid_sample": 2, "grid_sample_per_channel": 0,
+                       "grid_sample_bwd": 0, "grid_sample_per_channel_bwd": 0, "bias_act": 0,
+                       "plane_boxes": 2},
           f"expected 2 launches of the warp, its pre-pass and the sampler per predict, "
           f"got {launches}")
     check(by_key["warp_alpha_ctx"] == {(56, False): 1, (40, False): 1}
@@ -752,6 +775,9 @@ def phase_mat(dev, profile_dir=None):
           f"the warp did not run with its ghost mask at N=56 and N=40: {by_key}")
     check(by_key["grid_sample"] == {56: 1, 40: 1}, f"unexpected sampler launches {by_key}")
     check(by_key["plane_boxes"] == {4: 2}, f"the warp's pre-pass did not run twice: {by_key}")
+    check(all(launches[k] == 0 for k in ("grid_sample_per_channel", "grid_sample_bwd",
+                                         "grid_sample_per_channel_bwd")),
+          f"a training-path kernel ran in the MAT clip: {launches}")
     check(forwards % 3 == 0 and 11 <= forwards // 3 <= 13,
           f"expected 11-13 inpainter calls of 3 crops, got {forwards} forwards")
     check(launches["bias_act"] > 0 and launches["bias_act"] == per_forward * forwards,
@@ -959,13 +985,427 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, launches, k3_launche
     return rows, zero_shares
 
 
+def train_lvd_flags(path=TRAIN_SCRIPT):
+    """The flags scripts/cityscapes/train_lvd.sh hands the training CLI."""
+    import shlex
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), path)) as fh:
+        text = fh.read().replace("\\\n", " ")
+    for line in text.splitlines():
+        if "cli.train" in line:
+            return [a for a in shlex.split(line.split("cli.train", 1)[1]) if a != "$@"]
+    raise RuntimeError(f"no training command in {path}")
+
+
+def small_train_cfg():
+    """A small float32 LVD training config that still puts both samples of
+    the path on their kernels (K2' always on the card; K2's batch mode needs
+    128x256 frames and 16 channels of context, 3 + 13 layout classes), with
+    the scatter inversion. Its pose head starts at zero (the config's
+    default), so the object poses start at their biases on both sides: with
+    train_lvd.sh's random pose head the card's and the CPU's nets, which sum
+    in other orders, put a few pixels on the other side of the inversions'
+    hard decisions (rounding to a pixel, the hole and convergence masks),
+    and per-leaf gradients then differ by a few per cent."""
+    from waldo_tpu_torch.config import Config, DataConfig, ModelConfig
+
+    return Config(
+        dim=128, aspect_ratio=2.0, batch_size_vid=1, compute_dtype="float32",
+        data=DataConfig(num_lyt=13, fg_idx=[0, 1, 4, 5], bg_idx=[2, 3], other_idx=[6], vid_len=3,
+                        dataset="synthetic"),
+        model=ModelConfig(
+            patch_size=16, latent_shape=(8, 16), obj_shape=(2, 2), embed_dim=64, num_heads=4,
+            num_obj=4, oe_depth=1, pe_depth=1, oe_num_timesteps=5, ctx_len=2, use_pe=True,
+            use_pg=False, use_ii=False, sample_precision="float32"))
+
+
+def scatter_inversion_check(dev, rows=64, seed=5):
+    """The scatter inversion of train_lvd's object layers (64x64 textures
+    into 128x256 frames) on the card against the CPU, on the same forward
+    grids (smooth random affine warps). Returns (share of pixels that
+    differ by more than 1e-4, max|err| elsewhere)."""
+    import torch
+    from waldo_tpu_torch.ops import InverseWarp
+
+    rng = np.random.RandomState(seed)
+    g = smooth_grids(rng, rows, 1, 64, 64, "cpu", hole_frac=0.0)[:, 0] * 0.35
+    got = InverseWarp(64, 64, 128, 256, device=dev)(g.to(dev)).cpu()
+    want = InverseWarp(64, 64, 128, 256, device="cpu")(g)
+    err = (got - want).abs().amax(dim=-1)
+    off = err > 1e-4
+    return float(off.float().mean()), float(err[~off].max())
+
+
+def flat_grads(syn):
+    """The LVD gradients by flax path, as numpy arrays."""
+    from waldo_tpu_torch.convert import to_jax
+    from waldo_tpu_torch.train.checkpoint import _flatten
+
+    return _flatten(to_jax(syn, grads=True)["pe"])
+
+
+def train_kernel_inputs(rng, f, h, w, c, dev):
+    """The training path's two samples at their shapes, with the backward's
+    edge cases in named layers / rows: per-channel texture (F, H, W, C) with
+    layer 0 dense, layer 1 all zero, the others object-sparse; grids with
+    layer 2 exactly on the pixel lattice (flow 0), layer 3 on it shifted by
+    whole pixels, layer 4 wholly out of range, the rest smooth warps with
+    holes. Batch-mode texture (F, H, W, 23) dense, rows 0-1 zero, rows 2-3
+    object-sparse; grid rows 4-5 on the lattice, 6-7 out of range."""
+    import torch
+    from waldo_tpu_torch.ops import get_grid
+
+    base = torch.as_tensor(get_grid(h, w), device=dev)
+    shift = torch.tensor([6.0 / w, -4.0 / h], device=dev)
+    tex = sparse_alpha(rng, f, h, w, c, dev)
+    tex[..., 1] = 0.0
+    grids = smooth_grids(rng, f, c, h, w, dev)
+    grids[:, 2] = base
+    grids[:, 3] = base + shift
+    grids[:, 4] += 3.0
+    img = torch.from_numpy(rng.rand(f, h, w, 23).astype(np.float32) * 2 - 1).to(dev)
+    img[:2] = 0.0
+    img[2:4] *= (sparse_alpha(rng, 2, h, w, 2, dev)[..., 1:] > 0)
+    grid = smooth_grids(rng, f, 1, h, w, dev)[:, 0].contiguous()
+    grid[4] = base
+    grid[5] = base - shift
+    grid[6:8] += 3.0
+    return tex, grids.contiguous(), img, grid
+
+
+def phase_train_kernels(dev, card_name, run_launches):
+    """The training path's samples at train_lvd's shapes (B*Tc*Tp = 112 rows of
+    128x256): K2' (per-channel, C=17) and K2 in batch mode (C=23), each
+    forward and hand-written backward against the plain version's autograd,
+    on the edge cases of train_kernel_inputs and on dense inputs; then each
+    timed beside its bound, the plain version and one ATen call."""
+    import torch
+    import torch.nn.functional as F
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_multigrid_plain, grid_sample_plain
+    from waldo_tpu_torch.ops.kernels import (grid_sample_bwd_cuda, grid_sample_cuda,
+                                             grid_sample_per_channel_bwd_cuda,
+                                             grid_sample_per_channel_cuda)
+
+    rng = np.random.RandomState(4)
+    f, h, w, c, p = 112, 128, 256, 17, 128 * 256
+    rows, errs = [], {}
+
+    def rel(got, want, label):
+        scale = float(want.abs().max())
+        e = float((got - want).abs().max())
+        log(f"  {label}: max|err| {e:.3g} of max|plain| {scale:.3g}")
+        check(bool(torch.isfinite(got).all()) and e <= TOL_F32 * max(scale, 1e-30),
+              f"{label} disagrees with the plain version: {e} > {TOL_F32} x {scale}")
+        return e
+
+    def plain_grads(fn, inputs, need, gout):
+        ins = [x.detach().clone().requires_grad_(n) for x, n in zip(inputs, need)]
+        out = fn(*ins)
+        gs = torch.autograd.grad(out, [x for x, n in zip(ins, need) if n], gout)
+        return out.detach(), list(gs)
+
+    tex, grids, img, grid = train_kernel_inputs(rng, f, h, w, c, dev)
+    gout_pc = torch.randn(f, h, w, c, device=dev)
+    gout_b = torch.randn(f, h, w, 23, device=dev)
+
+    # K2' forward and backward, edge cases by layer
+    log(f"K2' per-channel sample {f}x{h}x{w} C={c}, forward and backward against the plain "
+        f"version (tolerance {TOL_F32} x max|plain|)")
+    out, planes, boxes = grid_sample_per_channel_cuda(tex, grids)
+    g_img, g_grid = grid_sample_per_channel_bwd_cuda(planes, boxes, grids, gout_pc, True)
+    w_out, (w_img, w_grid) = plain_grads(grid_sample_multigrid_plain, (tex, grids),
+                                         (True, True), gout_pc)
+    torch.cuda.synchronize()
+    errs["pc_fwd"] = rel(out, w_out, "forward, object-sparse with the edge layers")
+    e_img = rel(g_img, w_img, "grad_img, all layers")
+    e_grid = rel(g_grid, w_grid, "grad_grid, all layers")
+    check(float(w_img[..., 1].abs().max()) > 0, "the all-zero plane's plain grad_img is 0")
+    rel(g_img[..., 1], w_img[..., 1], "grad_img of the all-zero plane (layer 1)")
+    rel(g_grid[:, 2:4], w_grid[:, 2:4], "grad_grid on the pixel lattice (layers 2, 3)")
+    rel(g_img[..., 2:4], w_img[..., 2:4], "grad_img on the pixel lattice (layers 2, 3)")
+    check(not bool(g_grid[:, 4].any()) and not bool(w_grid[:, 4].any()),
+          "grad_grid of a grid wholly out of range is not 0")
+    rel(g_grid[:, 5:], w_grid[:, 5:], "grad_grid of the object-sparse layers")
+    errs["pc_bwd"] = max(float((g_img - w_img).abs().max()), float((g_grid - w_grid).abs().max()))
+    del out, planes, boxes, g_img, g_grid, w_out, w_img, w_grid
+
+    # K2 batch mode forward and backward, edge cases by row
+    log(f"K2 batch-mode sample {f}x{h}x{w} C=23, forward and backward")
+    out = grid_sample_cuda(img, grid, 1)
+    g_img, g_grid = grid_sample_bwd_cuda(img, grid, gout_b, 1, True)
+    _, g_grid_only = grid_sample_bwd_cuda(img, grid, gout_b, 1, False)
+    w_out, (w_img, w_grid) = plain_grads(grid_sample_plain, (img, grid), (True, True), gout_b)
+    torch.cuda.synchronize()
+    errs["b_fwd"] = rel(out, w_out, "forward")
+    rel(g_img, w_img, "grad_img (not asked for on the path)")
+    rel(g_grid, w_grid, "grad_grid")
+    check(torch.equal(g_grid, g_grid_only), "grad_grid depends on whether grad_img is asked for")
+    rel(g_img[:2], w_img[:2], "grad_img of the all-zero textures (rows 0, 1)")
+    rel(g_grid[2:4], w_grid[2:4], "grad_grid of the object-sparse textures (rows 2, 3)")
+    rel(g_grid[4:6], w_grid[4:6], "grad_grid on the pixel lattice (rows 4, 5)")
+    check(not bool(g_grid[6:8].any()), "grad_grid of a grid wholly out of range is not 0")
+    errs["b_bwd"] = float((g_grid - w_grid).abs().max())
+    del out, g_img, g_grid, g_grid_only, w_out, w_img, w_grid
+
+    # dense inputs, checked and timed
+    tex = torch.rand(f, h, w, c, device=dev)
+    grids = smooth_grids(rng, f, c, h, w, dev)
+    out, planes, boxes = grid_sample_per_channel_cuda(tex, grids)
+    g_img, g_grid = grid_sample_per_channel_bwd_cuda(planes, boxes, grids, gout_pc, True)
+    ins = [tex.clone().requires_grad_(), grids.clone().requires_grad_()]
+    w_out = grid_sample_multigrid_plain(*ins)
+    w_img, w_grid = torch.autograd.grad(w_out, ins, gout_pc, retain_graph=True)
+    log("K2' on dense inputs:")
+    errs["pc_fwd"] = max(errs["pc_fwd"], rel(out, w_out.detach(), "forward"))
+    errs["pc_bwd"] = max(errs["pc_bwd"], rel(g_img, w_img, "grad_img"),
+                         rel(g_grid, w_grid, "grad_grid"))
+    del w_img, w_grid
+    tex_fold = tex.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
+    grids_fold = grids.reshape(f * c, h, w, 2)
+    gout_fold = gout_pc.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
+    aten_bwd = torch.ops.aten.grid_sampler_2d_backward
+    fwd = dict(
+        ms=cuda_time(lambda: grid_sample_per_channel_cuda(tex, grids), 10),
+        plain_ms=cuda_time(lambda: grid_sample_multigrid_plain(tex, grids), 3),
+        library_ms=cuda_time(lambda: F.grid_sample(tex_fold, grids_fold, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=False), 10))
+    bwd = dict(
+        ms=cuda_time(lambda: grid_sample_per_channel_bwd_cuda(planes, boxes, grids, gout_pc, True),
+                     10),
+        plain_ms=cuda_time(lambda: torch.autograd.grad(w_out, ins, gout_pc, retain_graph=True), 3),
+        library_ms=cuda_time(lambda: aten_bwd(gout_fold, tex_fold, grids_fold, 0, 0, False,
+                                              [True, True]), 10))
+    n_s = f * c * p  # samples
+    texel_b, grid_b = 4 * f * h * w * c, 8 * n_s
+    b_fwd = bound(card_name, texel_b + grid_b + 4 * n_s, 24 * n_s)
+    b_bwd = bound(card_name, 2 * grid_b + 4 * n_s + 2 * texel_b, 40 * n_s)
+    rows.append({"name": f"grid_sample_per_channel {f}x{h}x{w} C={c}", "route": "cuda",
+                 "source": K2_SOURCE, "replaces": K2_REPLACES,
+                 "launches": run_launches["grid_sample_per_channel"], "max_abs_err": errs["pc_fwd"],
+                 **fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1]})
+    rows.append({"name": f"grid_sample_per_channel_bwd {f}x{h}x{w} C={c}", "route": "cuda",
+                 "source": BWD_SOURCE, "replaces": K2PC_BWD_REPLACES,
+                 "launches": run_launches["grid_sample_per_channel_bwd"],
+                 "max_abs_err": errs["pc_bwd"], **bwd, "bound_ms": b_bwd[0], "bound_by": b_bwd[1]})
+    del tex, grids, out, planes, boxes, g_img, g_grid, ins, w_out, tex_fold, grids_fold, gout_fold
+    torch.cuda.empty_cache()
+
+    img = torch.rand(f, h, w, 23, device=dev) * 2 - 1
+    grid = smooth_grids(rng, f, 1, h, w, dev)[:, 0].contiguous()
+    out = grid_sample_cuda(img, grid, 1)
+    _, g_grid = grid_sample_bwd_cuda(img, grid, gout_b, 1, False)
+    grid_p = grid.clone().requires_grad_()
+    w_out = grid_sample_plain(img, grid_p)
+    (w_grid,) = torch.autograd.grad(w_out, grid_p, gout_b, retain_graph=True)
+    log("K2 batch mode on dense inputs:")
+    errs["b_fwd"] = max(errs["b_fwd"], rel(out, w_out.detach(), "forward"))
+    errs["b_bwd"] = max(errs["b_bwd"], rel(g_grid, w_grid, "grad_grid"))
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    gout_nchw = gout_b.permute(0, 3, 1, 2).contiguous()
+    fwd = dict(
+        ms=cuda_time(lambda: grid_sample_cuda(img, grid, 1), 10),
+        plain_ms=cuda_time(lambda: grid_sample_plain(img, grid), 3),
+        library_ms=cuda_time(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=False), 10))
+    bwd = dict(
+        ms=cuda_time(lambda: grid_sample_bwd_cuda(img, grid, gout_b, 1, False), 10),
+        plain_ms=cuda_time(lambda: torch.autograd.grad(w_out, grid_p, gout_b, retain_graph=True),
+                           3),
+        library_ms=cuda_time(lambda: aten_bwd(gout_nchw, img_nchw, grid, 0, 0, False,
+                                              [False, True]), 10))
+    texel_b, grid_b, out_b = 4 * f * h * w * 23, 8 * f * p, 4 * f * p * 23
+    b_fwd = bound(card_name, texel_b + grid_b + out_b, f * p * (16 + 8 * 23))
+    b_bwd = bound(card_name, texel_b + 2 * grid_b + out_b, f * p * (16 + 12 * 23))
+    rows.append({"name": f"grid_sample batch mode {f}x{h}x{w} C=23", "route": "cuda",
+                 "source": K2_SOURCE, "replaces": K2_REPLACES,
+                 "launches": run_launches["grid_sample"], "max_abs_err": errs["b_fwd"],
+                 **fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1]})
+    rows.append({"name": f"grid_sample_bwd batch mode {f}x{h}x{w} C=23, grid only "
+                         f"(launched by an LVD step with pxl_vid)",
+                 "route": "cuda", "source": BWD_SOURCE, "replaces": K2_BWD_REPLACES,
+                 "launches": run_launches["grid_sample_bwd"], "max_abs_err": errs["b_bwd"],
+                 **bwd, "bound_ms": b_bwd[0], "bound_by": b_bwd[1]})
+    del img, grid, out, g_grid, grid_p, w_out, w_grid, img_nchw, gout_nchw, gout_pc, gout_b
+    torch.cuda.empty_cache()
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
+            f"library {r['library_ms']:.4f} ms")
+    return rows
+
+
+def phase_train(dev, card_name, profile_dir=None):
+    """The LVD training path: train_lvd.sh's config on synthetic clips,
+    Trainer.run for TRAIN_ITERS iterations (launch counts, finite loss, no
+    skipped step, parameters moved, the "latest" slot restores equal), then
+    TRAIN_TIMED steps timed on one fixed batch, the samples' kernels against
+    their plain versions at the path's shapes, and a small float32 step on
+    the card against the same step on the CPU."""
+    import shutil
+
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.convert import to_jax
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.ops.kernels import reset_launches
+    from waldo_tpu_torch.train import Trainer
+    from waldo_tpu_torch.train.checkpoint import _flatten
+
+    log(f"== 7. training path: LVD training ({TRAIN_SCRIPT}) on synthetic clips")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    mode = "vid_object_extractor"
+    try:
+        cfg = parse_cli(train_lvd_flags() + ["--data.dataset", "synthetic", "--save_path", root,
+                                             "--datetime", "smoke"])
+        m = cfg.model
+        shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.width_size, m.embed_dim,
+                 m.num_obj, cfg.data.num_lyt, m.oe_depth, m.pe_depth)
+        log(f"config (B, T, H, W, embed, objects, layout classes, LVD depths): {shape}; "
+            f"load_dim {cfg.load_dim}, fast_inverse_warp {m.fast_inverse_warp}, sample_precision "
+            f"{m.sample_precision!r}, compute {cfg.compute_dtype}, ctx_mode {m.ctx_mode!r}, "
+            f"include_self {m.include_self}, pe_estimator_init_mode {m.pe_estimator_init_mode!r}, "
+            f"losses {m.vid_object_extractor_losses}, {m.optimizer} lr {m.lr} betas "
+            f"({m.beta1}, {m.beta2})")
+        check(shape == (8, 14, 128, 256, 512, 16, 20, 2, 2) and cfg.load_dim == 0
+              and not m.fast_inverse_warp and m.sample_precision == "fast"
+              and cfg.compute_dtype == "float32" and m.ctx_mode == "prev" and m.include_self
+              and m.pe_estimator_init_mode == "" and m.optimizer == "adam",
+              "the parsed train_lvd.sh config is not the expected one")
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, device=dev)
+        before = [p.detach().clone() for p in tr.syn.lvd.parameters()]
+        log(f"trainer ready in {time.perf_counter() - t0:.1f} s "
+            f"({sum(p.numel() for p in before)} LVD parameters)")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.run(num_iter=TRAIN_ITERS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches, run_keys = read_launches()
+        st = tr.states["pe"]
+        log(f"Trainer.run({TRAIN_ITERS}): {run_s:.1f} s (synthetic clips made on the host "
+            f"included); launches {run_launches} by key {run_keys}; step count {int(st.count)}, "
+            f"nancount {int(st.nancount)}")
+        n = TRAIN_ITERS
+        # train_lvd.sh's four losses read no output of the context fusion
+        # (the fused frames enter only metrics), so autograd never asks for
+        # that sample's backward: K2's backward runs in the pxl_vid step below
+        check(run_launches == {"warp_alpha_ctx": 0, "grid_sample": n,
+                               "grid_sample_per_channel": n, "grid_sample_bwd": 0,
+                               "grid_sample_per_channel_bwd": n, "bias_act": 0, "plane_boxes": n},
+              f"expected one launch of K2' forward and backward, of K2's batch-mode forward and "
+              f"of the pre-pass per step, got {run_launches}")
+        check(run_keys["grid_sample"] == {112: n}
+              and run_keys["grid_sample_per_channel"] == {112: n},
+              f"unexpected sample shapes {run_keys}")
+        check(int(st.nancount) == 0 and int(st.count) == n, "a step was skipped (non-finite loss)")
+        unmoved = [k for (k, p), b in zip(tr.syn.lvd.named_parameters(), before)
+                   if torch.equal(p, b)]
+        log(f"{len(before) - len(unmoved)} of {len(before)} LVD parameter tensors changed")
+        check(not unmoved, f"LVD parameters that did not change: {unmoved}")
+        check(tr.ckpt.exists("pe", "latest"), "no latest checkpoint was written")
+        now = _flatten(to_jax(tr.syn)["pe"])
+        back = _flatten(tr.ckpt.restore("pe", to_jax(tr.syn)["pe"], "latest", strict=True))
+        check(all(np.array_equal(now[k], back[k]) for k in now), "the latest slot restores unequal")
+        log(f"latest checkpoint restores equal ({len(now)} leaves)")
+        del before, now, back
+
+        batch = tr._to_device(tr.train_loader.next())
+        for _ in range(2):
+            tr.step(mode, batch, 0)
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        metrics = tr.step(mode, batch, 0)
+        torch.cuda.synchronize()
+        step_launches, _ = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act", "grid_sample_bwd") else 1)
+                  for k, v in step_launches.items()), f"launches in one step: {step_launches}")
+        loss = float(metrics["loss"])
+        check(np.isfinite(loss) and all(bool(torch.isfinite(v)) for v in metrics.values())
+              and int(metrics["nancount"]) == 0, f"non-finite metrics {metrics}")
+        ms = cuda_time(lambda: tr.step(mode, batch, 0), TRAIN_TIMED, warmup=0)
+        clips = cfg.batch_size_vid / (ms / 1e3)
+        log(f"train step: {ms:.2f} ms over {TRAIN_TIMED} steps -> {clips:.3f} clips/s "
+            f"({cfg.batch_size_vid} clips of {cfg.data.vid_len} frames); peak memory "
+            f"{peak_gb:.2f} GB; loss {loss:.5f}; launches per step {step_launches}")
+        prof = (phase_profile(lambda: tr.step(mode, batch, 0), profile_dir, "_train")
+                if profile_dir else None)
+
+        # pxl_vid, a loss of the mode that reads the fused frames, puts the
+        # context fusion's backward (K2 batch mode) on the step
+        losses = list(m.vid_object_extractor_losses)
+        m.vid_object_extractor_losses = losses + ["pxl_vid"]
+        reset_launches()
+        px = tr.step(mode, batch, 0)
+        torch.cuda.synchronize()
+        px_launches, _ = read_launches()
+        m.vid_object_extractor_losses = losses
+        log(f"one step with pxl_vid added to the losses: launches {px_launches}, loss "
+            f"{float(px['loss']):.5f}")
+        check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act") else 1)
+                  for k, v in px_launches.items()) and bool(torch.isfinite(px["loss"])),
+              f"launches in a step with pxl_vid: {px_launches}")
+        del tr, batch, metrics, px
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # each kernel's launches from the run; K2's backward's from the pxl_vid step
+    rows = phase_train_kernels(dev, card_name,
+                               dict(run_launches, grid_sample_bwd=px_launches["grid_sample_bwd"]))
+
+    # a small float32 step on the card against the same step on the CPU, on
+    # a training clip drawn from a seeded stream (the same in every process)
+    cfg_s = small_train_cfg()
+    ds = create_dataset(cfg_s, phase="train", rng=random.Random(3))
+    b_np = {k: v[None] for k, v in ds[0].items() if isinstance(v, np.ndarray)}
+    res = []
+    for d in (dev, "cpu"):  # the same seeded weights on both
+        syn = Synthesizer(cfg_s, device=d, seed=3)
+        s_loss, _ = syn.extract_object_loss({k: torch.from_numpy(v).to(d) for k, v in b_np.items()})
+        s_loss.backward()
+        res.append((float(s_loss.detach()), flat_grads(syn)))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = res
+    # per leaf: 5e-3 of the leaf's largest gradient (the CPU tests' factor
+    # against JAX) plus 1e-5 of the largest of all leaves, since a leaf whose
+    # gradient sums many cancelling terms carries the whole step's rounding
+    # (other summation orders, the K2' backward's atomics) at that scale
+    top = max(float(np.abs(v).max()) for v in g_cpu.values())
+    ratio, leaf = max((float(np.abs(g_gpu[k] - g_cpu[k]).max())
+                       / (5e-3 * float(np.abs(g_cpu[k]).max()) + 1e-5 * top), k) for k in g_cpu)
+    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"small float32 train step, card vs CPU: loss {l_gpu:.6f} / {l_cpu:.6f} (relative "
+        f"{e_loss:.3g}, tol 1e-4); per-leaf gradients within {ratio:.3g} of their tolerance "
+        f"(5e-3 x max|CPU leaf| + 1e-5 x max|CPU grad| = {top:.3g}), the tightest {leaf}")
+    check(e_loss <= 1e-4 and ratio <= 1.0,
+          "the small train step on the card disagrees with the CPU")
+    share, e_inv = scatter_inversion_check(dev)
+    log(f"scatter inversion (64 object grids, 64x64 -> 128x256), card vs CPU on the same grids: "
+        f"{share:.3g} of the pixels differ by more than 1e-4 (tol 1e-4: a displacement within "
+        f"rounding of a half pixel), max|err| {e_inv:.3g} elsewhere (tol 1e-5)")
+    check(share <= 1e-4 and e_inv <= 1e-5,
+          "the scatter inversion on the card disagrees with the CPU")
+    return {"ms_per_step": ms, "clips_per_s": clips, "peak_gb": peak_gb, "loss": loss,
+            "run_seconds": run_s, "launches_run": run_launches, "launches_per_step": step_launches,
+            "launches_pxl_vid_step": px_launches,
+            "small_step_loss_err": e_loss, "small_step_grad_tol_ratio": ratio,
+            "scatter_inversion_diff_share": share, "scatter_inversion_err": e_inv,
+            "profile": prof}, rows
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10, help="timed predicts")
     ap.add_argument("--out", default=None, help="write the full results as JSON here")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace one flagship predict and one MAT clip with torch.profiler "
-                         "into DIR")
+                    help="trace one flagship predict, one MAT clip and one training step "
+                         "with torch.profiler into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -987,12 +1427,15 @@ def main(argv=None):
                                       mat_res["launches_by_key"], main_res["launches"],
                                       mat_res["launches"]["bias_act"], k1_seen)
     del k1_seen
+    train_res, train_rows = phase_train(dev, name, args.profile)
+    rows += train_rows
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(jsonable({"card": card_line, "build_s": build_s,
                                 "per_channel": per_channel, "main": main_res, "mat": mat_res,
+                                "train": train_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -30,6 +30,8 @@ def _imports(path):
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "waldo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {f.relative_to(ROOT / "waldo_tpu_torch").parts[0] for f in files[:-1]}
+    assert {"train", "data", "cli", "ops", "models", "utils"} <= scanned, scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad

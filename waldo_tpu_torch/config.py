@@ -2,13 +2,20 @@
 
 Field names and defaults match the JAX package one for one (a test holds
 them equal), so a config converts across with ``to_dict``/``from_dict``.
-The CLI parser is not ported yet; ``flagship_cfg`` builds the flagship
-Cityscapes predict configuration directly and ``flagship_mat_cfg`` the same
-with the MAT inpainting flags of scripts/cityscapes/test_mat.sh.
+``parse_cli`` reads the launch scripts' flags (``--s_num_obj 16``,
+``--data.vid_len 14``, ...) as the JAX package's parser does;
+``flagship_cfg`` builds the flagship Cityscapes predict configuration
+directly and ``flagship_mat_cfg`` the same with the MAT inpainting flags of
+scripts/cityscapes/test_mat.sh.
 """
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
+import sys
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -306,6 +313,42 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
 
+    # ---- derived ----
+    @property
+    def signature(self) -> str:
+        return f"{self.datetime}-{self.name}" if self.datetime else self.name
+
+    @property
+    def checkpoint_path(self) -> str:
+        return os.path.join(self.save_path, "checkpoints", self.signature)
+
+    @property
+    def log_path(self) -> str:
+        return os.path.join(self.save_path, "logs", self.signature)
+
+    @property
+    def result_path(self) -> str:
+        return os.path.join(self.save_path, "results", self.signature)
+
+    @property
+    def width_size(self) -> int:
+        return int(self.dim * self.aspect_ratio)
+
+    @property
+    def height_size(self) -> int:
+        return self.dim
+
+    @property
+    def scale_hd(self) -> float:
+        return self.load_dim / self.dim if self.load_dim > 0 else 1.0
+
+    def finalize(self) -> "Config":
+        if self.dim & (self.dim - 1):
+            raise ValueError(f"dim {self.dim} must be a power of two")
+        if not self.datetime:
+            self.datetime = time.strftime("%Y-%m-%d-%H:%M:%S")
+        return self
+
 
 _DATASET_DEFAULTS = {
     "cityscapes": dict(
@@ -354,6 +397,125 @@ def from_dict(d: dict) -> Config:
             model_d[k] = tuple(model_d[k])
     model = ModelConfig(**model_d)
     return Config(data=data, model=model, **d)
+
+
+def save_config(cfg: Config, path: Optional[str] = None) -> str:
+    path = path or os.path.join(cfg.checkpoint_path, "config.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2)
+    return path
+
+
+def load_config(path: str) -> Config:
+    with open(path) as f:
+        return from_dict(json.load(f))
+
+
+def _auto(raw: str):
+    """Best-effort scalar coercion for untyped (None / empty-list) defaults."""
+    for typ in (int, float):
+        try:
+            return typ(raw)
+        except ValueError:
+            pass
+    if raw.lower() in ("true", "false"):
+        return raw.lower() == "true"
+    if raw.lower() in ("none", "null"):
+        return None
+    return raw
+
+
+def _coerce(current, raw: str):
+    """``raw`` in the type of the field's current value."""
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes")
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, (list, tuple)):
+        parts = raw.split(",") if "," in raw else raw.split()
+        if len(current):
+            typ = type(current[0])
+            out = [typ(p) for p in parts]
+        else:
+            out = [_auto(p) for p in parts]
+        return tuple(out) if isinstance(current, tuple) else out
+    if current is None:
+        return _auto(raw)
+    return raw
+
+
+def _truthy(raw: Optional[str]) -> bool:
+    return raw is not None and raw.lower() in ("1", "true", "yes")
+
+
+def _find_run_config(save_path: str, name: str) -> Optional[str]:
+    """A run's saved config.json by name, the newest first."""
+    hits = glob.glob(os.path.join(save_path, "checkpoints", f"*-{name}", "config.json"))
+    hits += glob.glob(os.path.join(save_path, "checkpoints", name, "config.json"))
+    hits = [h for h in hits if os.path.isfile(h)]
+    return max(hits, key=os.path.getmtime) if hits else None
+
+
+def parse_cli(argv: Optional[List[str]] = None, base: Optional[Config] = None) -> Config:
+    """Parse ``--key value`` overrides onto a Config.
+
+    Nested fields are addressed as ``--data.dataset cityscapes`` or
+    ``--model.num_obj 16``; model fields may also use the reference's
+    ``--s_`` prefix (``--s_num_obj 16``); a bare name is looked up on the
+    Config, then its model, then its data. ``--config path.json`` loads a
+    snapshot first; ``--cont_train`` with ``--name`` reloads that run's
+    newest snapshot; ``--dataset name`` applies the dataset's defaults before
+    the other overrides. A flag with no value is true."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = base or Config()
+
+    kv = {}
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if not tok.startswith("--"):
+            raise ValueError(f"expected --key, got {tok!r}")
+        key = tok[2:]
+        if i + 1 < len(argv) and not argv[i + 1].startswith("--"):
+            val = argv[i + 1]
+            i += 2
+        else:
+            val = "true"
+            i += 1
+        kv[key] = val
+
+    if "config" in kv:
+        cfg = load_config(kv.pop("config"))
+    elif _truthy(kv.get("cont_train")):
+        snap = _find_run_config(kv.get("save_path", cfg.save_path), kv.get("name", cfg.name))
+        if snap:
+            cfg = load_config(snap)
+    if "dataset" in kv:
+        cfg.data.dataset = kv.pop("dataset")
+        apply_dataset_defaults(cfg)
+
+    for key, raw in kv.items():
+        if key.startswith("s_"):
+            key = "model." + key[2:]
+        parts = key.split(".")
+        if len(parts) == 1:
+            for target in (cfg, cfg.model, cfg.data):
+                if hasattr(target, parts[0]):
+                    break
+            else:
+                raise KeyError(f"unknown config key: {key}")
+        else:
+            target = cfg
+            for part in parts[:-1]:
+                target = getattr(target, part)
+            if not hasattr(target, parts[-1]):
+                raise KeyError(f"unknown config key: {key}")
+        attr = parts[-1]
+        setattr(target, attr, _coerce(getattr(target, attr), raw))
+    return cfg.finalize()
 
 
 def flagship_cfg() -> Config:

@@ -16,6 +16,10 @@ Layout rules (the inverse of waldo_tpu/models/convert.py):
          torch's ConvTranspose2d the flipped one
   copy   identical shapes (embeddings, norm scale/bias, noise_strength)
 
+``to_jax(synthesizer, grads=False)`` is the inverse: the nets' parameters,
+or their gradients, as the JAX package's tree (the gradient tests and the
+checkpoints use it).
+
 ``mat_from_jax(variables_np, module)`` does the same for the MAT
 ``Generator`` (models/mat) or any of its modules, which carry the flax
 names: the leaf "a/b/weight" of the ``params`` collection fills the port's
@@ -256,3 +260,38 @@ def mat_from_jax(variables_np, module: torch.nn.Module) -> None:
     if unfilled:
         raise ValueError(f"port MAT module has entries no leaf fills: {unfilled[:8]}")
     module.load_state_dict(new, strict=True)
+
+
+def _unconvert_leaf(arr: np.ndarray, kind: str) -> np.ndarray:
+    """The inverse of ``_convert_leaf``: a port layout back to flax's."""
+    if kind == "dense":
+        return arr.T
+    if kind == "conv":  # (O,I,kh,kw) -> (kh,kw,I,O)
+        return arr.transpose(2, 3, 1, 0)
+    if kind == "deconv":  # flipped (I,O,kh,kw) -> (kh,kw,I,O)
+        return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return arr
+
+
+def to_jax(synthesizer, grads: bool = False) -> Dict[str, dict]:
+    """The inverse of ``from_jax``: the synthesizer's nets as the JAX
+    package's parameter tree, nested dicts of float32 numpy arrays under
+    "pe", "pg", "ii", each under a "params" collection. With ``grads`` the
+    leaves are the parameters' ``.grad`` (zeros where a parameter has
+    none), in the same layout."""
+    out = {}
+    for net, module in synthesizer.nets().items():
+        own = dict(module.named_parameters())
+        tree: dict = {}
+        for key, fpath, kind in _RULES[net](synthesizer.cfg):
+            p = own[key]
+            t = p.grad if grads else p
+            arr = np.zeros(tuple(p.shape), np.float32) if t is None else \
+                t.detach().float().cpu().numpy()
+            node = tree
+            *parents, leaf = fpath.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = np.ascontiguousarray(_unconvert_leaf(arr, kind))
+        out[net] = {"params": tree}
+    return out

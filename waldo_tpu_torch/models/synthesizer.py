@@ -1,24 +1,43 @@
-"""Synthesizer: LVD -> FLP -> WIF inference (counterpart of the predict path
-of waldo_tpu/models/synthesizer.py).
+"""Synthesizer: LVD -> FLP -> WIF (counterpart of
+waldo_tpu/models/synthesizer.py).
 
 Batch layout (channel-last): vid (B,T,Hd,Wd,3) in [-1,1], lyt
-(B,T,Hd,Wd,Nl) scaled to {-5, 5}, flow (B,T,H,W,2). Only ``predict``
-(vid_prediction) is ported; the training losses come with the training
-slice.
+(B,T,Hd,Wd,Nl) scaled to {-5, 5}, flow (B,T,H,W,2). Ported: ``predict``
+(vid_prediction) and the LVD training loss ``extract_object_loss`` (modes
+vid_object_extractor and img_object_extractor); the FLP and WIF losses come
+with their training slices.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import torch
 
 from ..nn import init_module, resolve_dtype
-from ..ops import resize
+from ..ops import EdgeExtractor, gaussian_blur, resize
 from ..utils.profiling import annotate
 from .flp import FLPNet
 from .lvd import LVDNet, bg_alpha_buffer, compute_occ
 from .warper import Warper
 from .wif import WIFNet
+
+
+def compute_pts_regularization(pose, num_h, num_w):
+    """Control-point grid smoothness, a 0-d tensor on pose's device; a grid
+    with no interior points along an axis contributes 0 there."""
+    pts = pose.reshape(-1, num_h, num_w, 2)
+    reg = pose.new_zeros(())
+    if num_h >= 3:
+        reg = reg + ((pts[:, 1:-1] - 0.5 * (pts[:, 2:] + pts[:, :-2])) ** 2).mean()
+    if num_w >= 3:
+        reg = reg + ((pts[:, :, 1:-1] - 0.5 * (pts[:, :, 2:] + pts[:, :, :-2])) ** 2).mean()
+    return reg
+
+
+def _topk_mean(x, k, dim):
+    """Mean of the k largest entries along dim."""
+    return x.movedim(dim, -1).topk(k, dim=-1).values.mean(dim=-1)
 
 
 def _resolve_device(device) -> torch.device:
@@ -53,6 +72,12 @@ class Synthesizer:
             init_module(net, gen)
             net.to(self.device).eval()
         self.warper = Warper(cfg, device=self.device)
+        self.edge = EdgeExtractor(kernel_size=m.edge_size)
+        # the layout classes the losses read, as device indices (indexing
+        # with a list would copy it from the host and wait for the card)
+        d = cfg.data
+        self.lyt_idx = {k: torch.tensor(v, dtype=torch.long, device=self.device)
+                        for k, v in (("fg", d.fg_idx), ("bg", d.bg_idx), ("other", d.other_idx))}
         self.bg_alpha = torch.as_tensor(bg_alpha_buffer(cfg), device=self.device)
 
     def nets(self) -> Dict[str, torch.nn.Module]:
@@ -123,6 +148,282 @@ class Synthesizer:
             raw_output = torch.cat([raw_output, disocc.to(raw_output.dtype)], dim=-1)
         output = output[..., :-1]
         return output, flow, alpha_unflt, alpha, raw_alpha, raw_output, alpha_ctx
+
+    def _ctx_ts(self, b, t, generator=None):
+        """Context-time indices (B, Tc, T) by ctx_mode: every frame ("full"),
+        the previous frame ("prev"; frame 0's is the last), or the previous
+        one plus rd_ctx_num random ones ("prev_rd", drawn from
+        ``generator``)."""
+        m = self.cfg.model
+        dev = self.device
+        if m.ctx_mode == "full":
+            return torch.arange(t, device=dev)[None, :, None].expand(b, t, t)
+        if m.ctx_mode not in ("prev", "prev_rd"):
+            raise ValueError(f"unknown ctx_mode {m.ctx_mode!r}")
+        ts = torch.roll(torch.arange(t, device=dev), 1)[None, None].expand(b, 1, t)
+        if m.ctx_mode == "prev_rd":
+            rd = torch.randint(0, t, (b, m.rd_ctx_num, t), device=dev, generator=generator)
+            ts = torch.cat([ts, rd], dim=1)
+        return ts
+
+    # ------------------------------------------------------------------
+    # vid_object_extractor / img_object_extractor
+    # ------------------------------------------------------------------
+
+    def extract_object_loss(self, batch, global_iter=0, is_img=False,
+                            generator: Optional[torch.Generator] = None):
+        """The LVD training loss. batch {"vid", "lyt", "flow"} on this
+        synthesizer's device; ``generator`` (a torch.Generator on that
+        device) draws the input-modality dropout (drop_input_p) and the
+        random contexts of ctx_mode "prev_rd", the only random parts.
+        Returns (loss, metrics), every metric a detached 0-d tensor; the
+        loss is differentiable in the LVD parameters."""
+        cfg, m = self.cfg, self.cfg.model
+        if m.dropout > 0:
+            raise NotImplementedError("LVD dropout is not ported: the scripts train with 0.0")
+        losses = m.vid_object_extractor_losses
+        vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
+        if is_img:
+            vid, lyt, flow = vid[:, None], lyt[:, None], flow[:, None]
+        b, t = vid.shape[:2]
+        ctx_len = 1 if is_img else m.ctx_len
+        dev = vid.device
+        metrics = {}
+
+        # input-modality dropout
+        if m.drop_input_p > 0:
+            keep = [torch.rand((b, t), device=dev, generator=generator) > m.drop_input_p
+                    for _ in range(3)]
+            mul_rgb, mul_lyt, mul_flow = keep
+            if m.input_rgb:
+                mul_rgb = ((~mul_flow) & (~mul_lyt) & (~mul_rgb)) | mul_rgb
+            elif m.input_flow:
+                mul_flow = ((~mul_flow) & (~mul_lyt)) | mul_flow
+            r = lambda k: k[:, :, None, None, None].to(vid.dtype)
+            vid_in, lyt_in, flow_in = vid * r(mul_rgb), lyt * r(mul_lyt), flow * r(mul_flow)
+        else:
+            vid_in, lyt_in, flow_in = vid, lyt, flow
+
+        real_input = self.make_input(vid_in, lyt_in, flow_in)
+        p = self.lvd_pass(real_input, ctx_len)
+        occ, obj_alpha, bg_alpha, grids = self.alpha_grid_occ(
+            p["x_obj"], p["obj_pose"], p["bg_pose"], p["occ_score"])
+
+        decode_input = torch.cat([vid, lyt], dim=-1)
+        ctx_ts = self._ctx_ts(b, t, generator)
+        pred_ts = torch.arange(t, device=dev)
+        rec_output, flow_full, alpha_unflt, alpha_flt, _, _, _ = self.decode_output(
+            decode_input, grids, occ, obj_alpha, bg_alpha, p["cls"], ctx_ts, pred_ts,
+            restrict_to_ctx=False)
+
+        # reconstructed flow from the previous frame
+        if m.ctx_mode == "full":
+            idx = torch.arange(t - 1, device=dev)
+            rec_flow = flow_full[:, :, 1:][:, idx, idx]
+        else:
+            rec_flow = flow_full[:, 0, 1:]  # B T-1 Hd Wd 2
+
+        rec_vid, rec_lyt = rec_output[..., :3], rec_output[..., 3:]
+        rec_output_alpha = alpha_flt if m.swap_flt else alpha_unflt  # B T Hd Wd No+1
+        nll = torch.zeros((), device=dev)
+
+        def add(name, weight):
+            nonlocal nll
+            nll = nll + metrics[name] * weight
+
+        with annotate("loss/regularizers"):
+            # per-layer mean-flow consistency
+            a = (rec_output_alpha[..., 1:] + 1) / 2 + 1e-6  # B T H W No
+            sum_a = a.sum(dim=(2, 3))  # B T No
+            mean_flow = torch.einsum("bthwc,bthwn->btnc", flow, a) / sum_a[..., None]
+            diff = (flow[:, :, :, :, None, :] - mean_flow[:, :, None, None]).abs()
+            metrics["obj_flow"] = (a * diff.sum(-1)).mean()
+            if "obj_flow" in losses:
+                add("obj_flow", m.lambda_obj_flow)
+
+            # cluster activity
+            cs = a - 1e-6
+            k = max(m.num_obj // 4, 1)
+            metrics["activity"] = _topk_mean(-cs.reshape(-1, m.num_obj).mean(0), k, 0).mean()
+            per_b = -cs.reshape(b, -1, m.num_obj).mean(1)  # B No
+            top_b = per_b.topk(max(b // 4, 1), dim=0).values  # kb No
+            metrics["topactivity"] = _topk_mean(top_b, k, 1).mean()
+            mul_img = m.img_mul_act_reg if is_img else 1.0
+            if "activity" in losses:
+                add("activity", m.lambda_activity * mul_img)
+            if "topactivity" in losses:
+                add("topactivity", m.lambda_activity * mul_img)
+
+            # entropies
+            def entropy_of(alpha_pm1):
+                p01 = (alpha_pm1 + 1) / 2 + 1e-6
+                p01 = p01 / p01.sum(-1, keepdim=True)
+                return -(p01 * torch.log(p01 + 1e-6)).sum(-1, keepdim=True) / 0.37
+
+            entropy = entropy_of(rec_output_alpha)
+            entropy_flt = entropy_of(alpha_flt)
+            lyt_edge_mask = (gaussian_blur(lyt / 10 + 0.5, sigma=2.0, kernel_size=3)
+                             .amax(-1, keepdim=True) > 0.999).to(vid.dtype)
+            metrics["ent"] = entropy.mean()
+            metrics["ent_flt"] = entropy_flt.mean()
+            metrics["ent_flt_edge"] = (entropy_flt * lyt_edge_mask).mean()
+            for name in ("ent", "ent_flt", "ent_flt_edge"):
+                if name in losses:
+                    add(name, getattr(m, f"lambda_{name}"))
+
+        with annotate("loss/moving_objects"):
+            mov_obj_mask, fg_prop, nobg_prop, flow_edge_bin = self._moving_objects(lyt, flow)
+            fg_mask = ((rec_output_alpha[..., 1:] + 1) / 2).sum(-1, keepdim=True)
+            found_obj = -fg_mask
+            mov_obj = mov_obj_mask * 2 - 1
+            mov_obj = torch.where(mov_obj < 0, mov_obj * m.reg_bg_mul, mov_obj)
+            zero = mov_obj.new_zeros(())
+            if m.use_fg:
+                mov_obj = torch.where((mov_obj < 0) & (fg_prop > 0), zero, mov_obj)
+            if m.use_nobg:
+                mov_obj = torch.where((mov_obj < 0) & (nobg_prop > 0), zero, mov_obj)
+            if m.use_nobg_edge:
+                mov_obj = torch.where((mov_obj < 0) & (nobg_prop > 0) & (flow_edge_bin > 0.1),
+                                      mov_obj.new_full((), m.nobg_edge_mul), mov_obj)
+            if m.blur_alpha:
+                found_obj = gaussian_blur(found_obj, m.blur_sigma)
+                mov_obj = gaussian_blur(mov_obj, m.blur_sigma)
+            metrics["abs_mov"] = (mov_obj_mask - fg_mask).abs().mean()
+            metrics["reg_mov"] = (mov_obj * found_obj).mean()
+            metrics["reg_fg"] = (-found_obj * (1 - fg_prop)).mean()
+            if "abs_mov" in losses:
+                add("abs_mov", m.lambda_abs_mov)
+            if "reg_mov" in losses:
+                wm, wi = m.warmup_reg_mov_mul, m.warmup_reg_mov_iter
+                mul = max(1.0, wm * (1 - global_iter / wi)) if wi > 0 else 1.0
+                add("reg_mov", m.lambda_reg_mov * mul * mul_img)
+            if "reg_fg" in losses:
+                add("reg_fg", m.lambda_reg_fg)
+
+        with annotate("loss/cell_dis"):
+            self._cell_dis(metrics, p["obj_pose"], mov_obj_mask, fg_mask, b, t,
+                           tuple(vid.shape[2:4]))
+            if "cell_dis" in losses:
+                add("cell_dis", m.lambda_cell_dis)
+            if "center_dis" in losses:
+                add("center_dis", m.lambda_center_dis)
+
+        with annotate("loss/reconstruction"):
+            metrics["l1_flow"] = (flow[:, 1:] - rec_flow).abs().mean()
+            if "l1_flow" in losses:
+                wm, wi = m.warmup_l1_flow_mul, m.warmup_l1_flow_iter
+                mul = min(float(wm), 1 + (wm - 1) * (global_iter / wi)) if wi > 0 else 1.0
+                add("l1_flow", m.lambda_l1_flow * mul)
+
+            # layout cross-entropy
+            tgt = lyt.argmax(dim=-1, keepdim=True)
+            logp = torch.log_softmax(rec_lyt, dim=-1)
+            metrics["ce_lyt"] = (-logp.gather(-1, tgt)[..., 0]).mean()
+            logp_obj = torch.log_softmax(fg_mask * rec_lyt, dim=-1)
+            ce_obj = -logp_obj.gather(-1, tgt)[..., 0]
+            metrics["ce_lyt_obj"] = (ce_obj * mov_obj_mask[..., 0]).mean()
+            metrics["soft_ce_lyt"] = (-((lyt / 10 + 0.5) * logp).sum(-1)).mean()
+            for name in ("ce_lyt", "ce_lyt_obj", "soft_ce_lyt"):
+                if name in losses:
+                    add(name, getattr(m, f"lambda_{name}"))
+
+            # pixel reconstruction
+            metrics["sharp_vid"] = (rec_vid - vid).abs().mean()
+            rv, fv = vid, rec_vid
+            if m.blur_pxl:
+                rv, fv = gaussian_blur(vid, m.blur_sigma), gaussian_blur(rec_vid, m.blur_sigma)
+            pxl = rv - fv
+            pxl = (pxl.abs() if m.l1_pxl else pxl ** 2).reshape(b, -1).mean(-1)
+            metrics["pxl_vid"] = pxl.mean()
+            if "pxl_vid" in losses:
+                wi = m.warmup_pxl_vid_iter
+                mul = min(1.0, global_iter / wi) if wi > 0 else 1.0
+                if m.cosine_warmup_pxl_vid:
+                    mul = math.sin(mul * math.pi / 2)
+                add("pxl_vid", m.lambda_pxl_vid * mul)
+            if "sharp_vid" in losses:
+                wi = m.warmup_sharp_vid_iter
+                mul = min(1.0, global_iter / wi) if wi > 0 else 1.0
+                add("sharp_vid", m.lambda_sharp_vid * mul)
+
+        # grid regularization and rest pose
+        metrics["pts_reg_obj"] = compute_pts_regularization(p["obj_pose"], *m.obj_shape)
+        if "pts_reg_obj" in losses:
+            add("pts_reg_obj", m.lambda_pts_reg)
+        if m.has_bg:
+            metrics["pts_reg_bg"] = compute_pts_regularization(p["bg_pose"], *m.latent_shape)
+            if "pts_reg_bg" in losses:
+                add("pts_reg_bg", m.lambda_pts_reg)
+
+        def rest(r):
+            if m.ada_pts_rest:
+                return (r * pxl[:, None]).mean()
+            if m.ada_pts_rest_detach:
+                return (r * pxl.detach()[:, None]).mean()
+            return r.mean()
+
+        metrics["pts_rest_obj"] = rest(p["rest_obj"])
+        if m.has_bg and not m.fix_bg:
+            metrics["pts_rest_bg"] = rest(p["rest_bg"])
+        if "pts_rest_obj" in losses:
+            add("pts_rest_obj", m.lambda_pts_rest)
+        if "pts_rest_bg" in losses and "pts_rest_bg" in metrics:
+            add("pts_rest_bg", m.lambda_pts_rest)
+
+        metrics["loss"] = nll
+        return nll, {k: v.detach() for k, v in metrics.items()}
+
+    def _moving_objects(self, lyt, flow):
+        """The data's moving-object mask (B,T,H,W,1) from the flow edges and
+        the layout, and the layout's foreground and non-background shares;
+        no parameter enters it."""
+        m = self.cfg.model
+        dt = flow.dtype
+        prop = lambda k: (lyt.index_select(-1, self.lyt_idx[k]) / 10 + 0.5).sum(-1, keepdim=True)
+        flow_edge, dominant = self.edge(flow)
+        flow_edge_bin = (flow_edge > m.flow_thresh).to(dt)
+        fg_prop = prop("fg")
+        nofg_prop = 1 - fg_prop
+        nobg_prop = 1 - prop("bg")
+        nofg_flow = gaussian_blur(torch.cat([nofg_prop, nofg_prop * flow], dim=-1), m.blur_sigma)
+        denom = nofg_flow[..., :1] + (nofg_flow[..., :1] == 0).to(dt)
+        mean_bg_flow = nofg_flow[..., 1:] / denom
+        delta_flow = fg_prop * (flow - mean_bg_flow).abs().sum(-1, keepdim=True)
+        mov_obj_mask = (delta_flow > m.mov_obj_thresh).to(dt)
+        if m.use_dominant_flow_other:
+            other = prop("other") * dominant * flow_edge_bin
+            mov_obj_mask = torch.maximum(mov_obj_mask, other)
+        if m.use_flow_nobg:
+            fm = (flow_edge_bin > 0.1) & (nobg_prop > 0)
+            mov_obj_mask = torch.maximum(mov_obj_mask, fm.to(dt))
+        return mov_obj_mask, fg_prop, nobg_prop, flow_edge_bin
+
+    def _cell_dis(self, metrics, obj_pose, mov_obj_mask, fg_mask, b, t, hd_shape):
+        """Control-point cell and centre distances to the moving pixels not
+        yet covered: cell_dis sums the squared distance to each of the
+        object grid's cell centres, taken as sum_k |p_k|^2 + K |g|^2 -
+        2 g . sum_k p_k (the (B,T,No,cells,H,W) distances never
+        materialize)."""
+        m = self.cfg.model
+        grid = self.warper.src_grid
+        grid_hd = grid if tuple(grid.shape[:2]) == hd_shape else self.warper.src_grid_hd
+        ho_, wo_ = m.obj_shape
+        obj_grid = obj_pose.reshape(b, t, m.num_obj, ho_, wo_, 2)
+        obj_cell = (obj_grid[:, :, :, 1:, 1:] + obj_grid[:, :, :, 1:, :-1]
+                    + obj_grid[:, :, :, :-1, 1:] + obj_grid[:, :, :, :-1, :-1]) / 4
+        cells = obj_cell.reshape(b, t, m.num_obj, -1, 2)  # B T No K 2
+        obj_center = obj_grid.reshape(b, t, m.num_obj, -1, 2).mean(3)  # B T No 2
+        g2 = (grid_hd ** 2).sum(-1)  # H W
+        dot = lambda pts: torch.einsum("btnc,hwc->btnhw", pts, grid_hd)
+        cell_dis = (cells.shape[3] * g2 + (cells ** 2).sum((-1, -2))[..., None, None]
+                    - 2 * dot(cells.sum(3)))  # B T No H W
+        center_dis = g2 + (obj_center ** 2).sum(-1)[..., None, None] - 2 * dot(obj_center)
+        mv, fm = mov_obj_mask, fg_mask
+        if m.blur_alpha:
+            mv, fm = gaussian_blur(mv, m.blur_sigma), gaussian_blur(fm, m.blur_sigma)
+        mv_l, fm_l = mv.movedim(-1, 2), fm.movedim(-1, 2)  # B T 1 H W
+        metrics["cell_dis"] = ((mv_l + m.cell_dis_eps) * (1 - fm_l) * cell_dis).amin(dim=2).mean()
+        metrics["center_dis"] = (mv_l * center_dis).amin(dim=2).mean()
 
     # ------------------------------------------------------------------
     # vid_prediction

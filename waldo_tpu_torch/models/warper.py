@@ -9,11 +9,13 @@ Per-layer maps keep the layer axis right after time ((B,T,No+1,H,W,C));
 "squeezed" per-layer alphas put the layers in the channel axis
 ((B,T,H,W,No+1)).
 
-Ported: grid construction, the layer <-> output samples, the predict
-path's flow synthesis and context fusion (``ctx_uniform=True``, the fused
-alpha_ctx warp) and the per-layer flows the MAT post-processing propagates
-along. The unfused training branches raise until the training slice ports
-them.
+Ported: grid construction (the scatter inversion of the training configs
+and the iterative one of the flagship predict), the layer <-> output
+samples, the flow synthesis and context fusion in both forms (the predict
+path's ``ctx_uniform=True``, one fused alpha_ctx warp; the training path's
+unfused per-layer sample, occlusion product and gathered context fusion,
+which are differentiable), and the per-layer flows the MAT post-processing
+propagates along.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import InverseWarp, TPSWarp, get_grid, grid_sample, resize
-from ..ops.grid_sample import grid_sample_ctx, warp_alpha_ctx
+from ..ops.grid_sample import grid_sample_ctx, grid_sample_multigrid, warp_alpha_ctx
 from ..utils import gather_time
 from ..utils.profiling import annotate
 
@@ -58,6 +60,7 @@ class Warper:
         self.scale_hd = cfg.load_dim / cfg.dim if cfg.load_dim > 0 else 1.0
         src_pts = get_grid(*m.latent_shape).reshape(-1, 2)
         tgt_pts = get_grid(*m.obj_shape).reshape(-1, 2)
+        self.src_grid = torch.as_tensor(get_grid(*self.src_shape), device=device)
         self.src_grid_hd = torch.as_tensor(get_grid(*self.src_shape_hd), device=device)
         self.tps_obj = TPSWarp(*self.tgt_shape, tgt_pts, device=device)
         self.tps_bg = TPSWarp(*self.src_shape, src_pts, device=device)
@@ -74,15 +77,15 @@ class Warper:
     # ---- grid construction ----
 
     def __call__(self, obj_pose, bg_pose) -> WarpGrids:
-        if not self.fast_inverse_warp:
-            raise NotImplementedError(
-                "the scatter grid inversion is not ported yet: set "
-                "model.fast_inverse_warp=True (the iterative inversion)")
+        if self.fast_inverse_warp:
+            inv_o, inv_b = self.invert_obj.iterative, self.invert_bg.iterative
+        else:
+            inv_o, inv_b = self.invert_obj, lambda g: self.invert_bg(g, erode=False)
         b, t, no, lo, _ = obj_pose.shape
         with annotate("warper/tps_obj"):
             tgt_obj = self.tps_obj(obj_pose.reshape(b * t * no, lo, 2))
         with annotate("warper/invert_obj"):
-            src_obj = self.invert_obj.iterative(tgt_obj)
+            src_obj = inv_o(tgt_obj)
         tgt_obj = tgt_obj.reshape((b, t, no) + tuple(tgt_obj.shape[1:]))
         src_obj = src_obj.reshape((b, t, no) + tuple(src_obj.shape[1:]))
 
@@ -90,7 +93,7 @@ class Warper:
         with annotate("warper/tps_bg"):
             tgt_bg = self.tps_bg(bg_pose.reshape(b * t, l, 2))
         with annotate("warper/invert_bg"):
-            src_bg = self.invert_bg.iterative(tgt_bg)
+            src_bg = inv_b(tgt_bg)
         tgt_bg = tgt_bg.reshape((b, t) + tuple(tgt_bg.shape[1:]))
         src_bg = src_bg.reshape((b, t) + tuple(src_bg.shape[1:]))
         return WarpGrids(tgt_obj, src_obj, tgt_bg, src_bg)
@@ -140,7 +143,7 @@ class Warper:
 
     def grid_to_flow(self, x, grids: WarpGrids, occ, obj_alpha, bg_alpha, cls, ctx_ts,
                      pred_ts, restrict_to_ctx=False, hd_window=None, ctx_uniform=False):
-        """Dense ctx->pred flow per layer, occlusion-merged (predict path).
+        """Dense ctx->pred flow per layer, occlusion-merged.
 
         x: (B,T,Hd,Wd,3+Nl) rgb+layout at load resolution
         occ: (B,T,No+1,No+1); obj_alpha (B,No,Ho,Wo,1); bg_alpha (B,H,W,1)
@@ -150,12 +153,12 @@ class Warper:
 
         ctx_uniform: the caller's promise that ctx_ts is constant along the
         pred axis, which lets the fused alpha_ctx warp (one kernel on a CUDA
-        device) read each unique context frame once. hd_window: only frames
-        [0, hd_window) get the per-frame HD work (the frames gathered
-        downstream)."""
-        if not ctx_uniform:
-            raise NotImplementedError(
-                "the unfused alpha_ctx warp (training path) is not ported yet")
+        device, no backward) read each unique context frame once. Otherwise
+        (the training path) each (ctx, pred) pair's alphas are gathered and
+        sampled per layer (one per-channel-grid kernel on a CUDA device),
+        then masked, maxed, occluded and reduced in differentiable PyTorch.
+        hd_window: only frames [0, hd_window) get the per-frame HD work (the
+        frames gathered downstream)."""
         b, t = x.shape[:2]
         tc, tp = ctx_ts.shape[1], pred_ts.shape[0]
         no = self.num_obj
@@ -230,8 +233,7 @@ class Warper:
             if self.scale_hd != 1:
                 is_obj = resize(is_obj, self.scale_hd)
             is_obj = (is_obj > 0.9).to(x.dtype).reshape(b, tp, no, hd, wd)
-            io = torch.cat([torch.ones_like(is_obj[:, :, :1]), is_obj], dim=2)
-            io = io.reshape(b * tp, no + 1, hd, wd)
+            io = torch.cat([torch.ones_like(is_obj[:, :, :1]), is_obj], dim=2)  # B Tp No+1 Hd Wd
 
         # warp the layer flows to the output frame; ctx channels back to an axis
         with annotate("warper/flow_warp"):
@@ -241,6 +243,13 @@ class Warper:
             with annotate("warper/flow_upsample"):
                 flow = resize(flow, self.scale_hd)
         sample_grid = self.src_grid_hd + flow.reshape(-1, no + 1, hd, wd, 2)
+        to_chan_last = lambda a: a[..., 0].movedim(2, -1) * 2.0 - 1.0
+
+        if not ctx_uniform:
+            alpha_ctx, disocc, flow = self._alpha_ctx_unfused(
+                alpha, sample_grid, flow, occ, io, ctx_ts, to_pred, occ_dtype)
+            return (flow, to_chan_last(alpha_unflt), to_chan_last(alpha),
+                    alpha_ctx * 2.0 - 1.0, disocc)
 
         # fused path: gather only the unique ctx frames and run sample + ghost
         # mask + disocc + occlusion product + flow reduction as one op
@@ -250,16 +259,51 @@ class Warper:
             tex = alpha_u[..., 0].movedim(2, -1).reshape(b * tc, hd, wd, no + 1)
             occ_n = to_pred(occ)[:, None].expand(b, tc, tp, no + 1, no + 1)
             alpha_occ, disocc, flow = warp_alpha_ctx(
-                tex, sample_grid, occ_n.reshape(b * tc * tp, no + 1, no + 1), io,
+                tex, sample_grid, occ_n.reshape(b * tc * tp, no + 1, no + 1),
+                None if io is None else io.reshape(b * tp, no + 1, hd, wd),
                 tp_sz=tp, tcp=tc * tp)
         alpha_ctx = alpha_occ.reshape(b, tc, tp, hd, wd, no + 1)
         if occ_dtype is not None:
             alpha_ctx = alpha_ctx.to(occ_dtype)
         disocc = disocc.reshape(b, tc, tp, hd, wd, 1)
         flow = flow.reshape(b, tc, tp, hd, wd, 2)
-        to_chan_last = lambda a: a[..., 0].movedim(2, -1) * 2.0 - 1.0
         return (flow, to_chan_last(alpha_unflt), to_chan_last(alpha),
                 alpha_ctx * 2.0 - 1.0, disocc)
+
+    def _alpha_ctx_unfused(self, alpha, sample_grid, flow, occ, io, ctx_ts, to_pred,
+                           occ_dtype):
+        """The training path's alpha_ctx warp: every (ctx, pred) pair's
+        alphas sampled per layer along its grids, the ghost mask, the
+        disocclusion max, the occlusion at prediction time and the
+        alpha-weighted flow reduction. alpha (B,Tw,No+1,Hd,Wd,1) in [0,1],
+        sample_grid (B*Tc*Tp,No+1,Hd,Wd,2), flow (B,Tc,Tp,No+1,Hd,Wd,2).
+        Returns alpha_ctx (B,Tc,Tp,Hd,Wd,No+1) in [0,1], stored in bf16 with
+        "fast" sampling, disocc (B,Tc,Tp,Hd,Wd,1) and the flow
+        (B,Tc,Tp,Hd,Wd,2) in float32."""
+        b, tc, tp, n1, hd, wd = flow.shape[:6]
+        alpha_ctx = gather_time(alpha[..., 0], ctx_ts)  # B Tc Tp No+1 Hd Wd
+        with annotate("warper/alpha_ctx_sample"):
+            alpha_ctx = grid_sample_multigrid(
+                alpha_ctx.reshape(-1, n1, hd, wd).movedim(1, -1), sample_grid)
+        alpha_ctx = alpha_ctx.movedim(-1, 1).reshape(b, tc, tp, n1, hd, wd)
+        if occ_dtype is not None:
+            # "fast" stores the (B,Tc,Tp,No+1,Hd,Wd) alpha maps in bf16
+            alpha_ctx = alpha_ctx.to(occ_dtype)
+        if io is not None:
+            alpha_ctx = alpha_ctx * io[:, None].to(alpha_ctx.dtype)
+        disocc = alpha_ctx.amax(dim=3)[..., None]  # B Tc Tp Hd Wd 1
+
+        # occlusion at prediction time: a loop over the occluders
+        with annotate("warper/occ_product_pred"):
+            occ_p = to_pred(occ)[:, None].expand(b, tc, tp, n1, n1).reshape(b, tc * tp, n1, n1)
+            a6 = alpha_ctx.reshape(b, tc * tp, n1, hd, wd, 1)
+            occp = self.occlusion_product(a6, occ_p, dtype=occ_dtype)
+            alpha_ctx = (occp * a6).reshape(b, tc, tp, n1, hd, wd)
+
+        # alpha-weighted flow reduction, accumulated in float32
+        with annotate("warper/flow_reduce"):
+            flow = (alpha_ctx.float()[..., None] * flow).sum(dim=3)  # B Tc Tp Hd Wd 2
+        return alpha_ctx.movedim(3, -1), disocc, flow
 
     # ---- warp the context frames and fuse ----
 
@@ -267,20 +311,23 @@ class Warper:
         """x (B,T,Hd,Wd,C); alpha (B,Tc,Tp,Hd,Wd,No+1) in [-1,1];
         flow (B,Tc,Tp,Hd,Wd,2); returns (output (B,Tp,Hd,Wd,C+1),
         raw (B,Tc',Tp,Hd,Wd,C+No+1))."""
-        if not ctx_uniform:
-            raise NotImplementedError(
-                "the gathered context fusion (training path) is not ported yet")
         b, tc, tp = flow.shape[:3]
         hd, wd = self.src_shape_hd
         c = x.shape[-1]
-        # gather the unique ctx frames; the sampler's tp_sz row mapping fans
-        # each out to its tp grids without materializing the copies
-        bi = torch.arange(b, device=x.device)[:, None]
-        ctx_u = x[bi, ctx_ts[:, :, 0].to(x.device)]  # B Tc Hd Wd C
-        with annotate("warper/context_fusion_sample"):
-            out = grid_sample_ctx(ctx_u.reshape(-1, hd, wd, c),
-                                  self.src_grid_hd + flow.reshape(-1, hd, wd, 2),
-                                  tp_sz=tp)
+        grid = self.src_grid_hd + flow.reshape(-1, hd, wd, 2)
+        if ctx_uniform:
+            # gather the unique ctx frames; the sampler's tp_sz row mapping
+            # fans each out to its tp grids without materializing the copies
+            bi = torch.arange(b, device=x.device)[:, None]
+            ctx_u = x[bi, ctx_ts[:, :, 0].to(x.device)]  # B Tc Hd Wd C
+            with annotate("warper/context_fusion_sample"):
+                out = grid_sample_ctx(ctx_u.reshape(-1, hd, wd, c), grid, tp_sz=tp)
+        else:
+            # training path: every (ctx, pred) pair's frame, gathered; the
+            # generic sampler takes the kernel's batch mode at these sizes
+            ctx = gather_time(x, ctx_ts)  # B Tc Tp Hd Wd C
+            with annotate("warper/context_fusion_sample"):
+                out = grid_sample(ctx.reshape(-1, hd, wd, c), grid)
         out = out.reshape(b, tc, tp, hd, wd, c)
         if self.sample_precision == "fast":
             # bf16 storage of the warped-context stack; the fused output

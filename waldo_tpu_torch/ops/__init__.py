@@ -3,4 +3,4 @@ from .grid_sample import (grid_sample, grid_sample_ctx, grid_sample_multigrid,
                           warp_alpha_ctx)
 from .tps import TPSWarp
 from .inverse_warp import InverseWarp
-from .image import resize
+from .image import EdgeExtractor, gaussian_blur, resize

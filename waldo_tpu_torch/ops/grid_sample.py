@@ -4,17 +4,25 @@ waldo_tpu/ops/grid_sample.py).
 
 Layout: image (B, H, W, C), grid (B, Ho, Wo, 2) with (x, y) in [-1, 1].
 
-``grid_sample`` and ``grid_sample_multigrid`` on the CPU are plain PyTorch;
-``grid_sample_ctx`` and ``warp_alpha_ctx`` are the two hot samples of the
-predict path. For each of those three the plain PyTorch version sits here
-(``*_plain``) and a CUDA tensor goes to the hand-written kernel
-(ops/kernels): there is no fallback from a CUDA tensor to the plain
-version. ``plane_boxes_plain`` is the plain version of the pre-pass that
-feeds the per-layer samples of both kernels, and ``tap_footprint_skips`` the
-kernels' exact test for a sample that is 0 without reading a texel (the
-TPU kernels' sparsity skip). The kernels and the plain versions compute in float32: the JAX
-signatures' ``precision`` has no counterpart here, since "fast" sampling
-only decides where the callers store bf16 maps.
+``grid_sample``, ``grid_sample_multigrid``, ``grid_sample_ctx`` and
+``warp_alpha_ctx`` are the samples of the ported paths. For each the plain
+PyTorch version sits here (``*_plain``) and a CUDA tensor goes to the
+hand-written kernel (ops/kernels): there is no fallback from a CUDA tensor
+to the plain version. The generic ``grid_sample`` takes the kernel (K2 in
+batch mode) exactly inside the JAX package's TPU routing envelope
+(``in_kernel_envelope``) and is ``F.grid_sample`` outside it, as the JAX
+package leaves those samples to XLA. The three samplers are differentiable:
+on the card their backward is a hand-written kernel too
+(csrc/grid_sample_bwd.cu, float32 only), on the CPU autograd runs through
+``F.grid_sample``; both take torch's one-sided derivative where a sample
+sits exactly on a texel centre. ``warp_alpha_ctx`` (the fused predict-path
+warp) has no backward. ``plane_boxes_plain`` is the plain version of the
+pre-pass that feeds the per-layer samples of the kernels, and
+``tap_footprint_skips`` the kernels' exact test for a sample that is 0
+without reading a texel (the TPU kernels' sparsity skip). The kernels and
+the plain versions compute in float32: the JAX signatures' ``precision``
+has no counterpart here, since "fast" sampling only decides where the
+callers store bf16 maps.
 """
 from __future__ import annotations
 
@@ -24,16 +32,70 @@ import torch
 import torch.nn.functional as F
 
 from .grid import get_grid
-from .kernels import grid_sample_cuda, warp_alpha_ctx_cuda
+from .kernels import (grid_sample_bwd_cuda, grid_sample_cuda, grid_sample_per_channel_bwd_cuda,
+                      grid_sample_per_channel_cuda, warp_alpha_ctx_cuda)
+
+
+def in_kernel_envelope(img_shape, grid_shape) -> bool:
+    """Whether a generic sample of a texture ``img_shape`` (B, H, W, C) along
+    grids ``grid_shape`` goes to the kernel: the envelope in which the JAX
+    package routes it to ``grid_sample_pallas`` on the TPU
+    (waldo_tpu/ops/grid_sample.py, ``auto_impl``)."""
+    src = img_shape[-3] * img_shape[-2]
+    out_px = grid_shape[-3] * grid_shape[-2]
+    return (src * img_shape[-1] >= (1 << 19) and src <= (1 << 22)
+            and out_px >= (1 << 15) and img_shape[0] <= 256)
+
+
+def grid_sample_plain(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Sample img (B,H,W,C) at grid (B,Ho,Wo,2) -> (B,Ho,Wo,C) in img's dtype,
+    computed in float32 by ``F.grid_sample``."""
+    out = F.grid_sample(img.permute(0, 3, 1, 2).float(), grid.float(),
+                        mode="bilinear", padding_mode="zeros", align_corners=False)
+    return out.permute(0, 2, 3, 1).to(img.dtype)
+
+
+def _require_float32(img, grid, what):
+    if img.dtype != torch.float32 and torch.is_grad_enabled() and (
+            img.requires_grad or grid.requires_grad):
+        raise TypeError(f"the {what} kernel's backward takes float32 textures only, got "
+                        f"{img.dtype} with a gradient asked for")
+
+
+class _GridSampleCuda(torch.autograd.Function):
+    """Shared-grid sample (K2; ``tp_sz`` 1 is its batch mode) with the
+    hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, img, grid, tp_sz):
+        ctx.tp_sz = tp_sz
+        ctx.save_for_backward(img, grid)
+        return grid_sample_cuda(img, grid, tp_sz)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        img, grid = ctx.saved_tensors
+        g_img, g_grid = grid_sample_bwd_cuda(img, grid, grad.float().contiguous(), ctx.tp_sz,
+                                             ctx.needs_input_grad[0])
+        return g_img, g_grid if ctx.needs_input_grad[1] else None, None
+
+
+def _grid_sample_kernel(img, grid, tp_sz):
+    _require_float32(img, grid, "grid_sample")
+    return _GridSampleCuda.apply(img.contiguous(), grid.float().contiguous(), tp_sz)
 
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Sample img (B,H,W,C) at grid (B,Ho,Wo,2) -> (B,Ho,Wo,C) in img's dtype,
-    computed in float32. The generic sampler: the small samples of the path
-    (TPS inversion, layer_to_output) that the JAX package leaves to XLA."""
-    out = F.grid_sample(img.permute(0, 3, 1, 2).float(), grid.float(),
-                        mode="bilinear", padding_mode="zeros", align_corners=False)
-    return out.permute(0, 2, 3, 1).to(img.dtype)
+    computed in float32. The generic sampler: a CUDA tensor inside
+    ``in_kernel_envelope`` (the training path's gathered context fusion)
+    goes to the kernel in batch mode; every other sample (TPS inversion,
+    layer_to_output, the small samples of the MAT post-processing) is
+    ``F.grid_sample``."""
+    if img.is_cuda and in_kernel_envelope(img.shape, grid.shape):
+        return _grid_sample_kernel(img, grid, 1)
+    return grid_sample_plain(img, grid)
 
 
 def plane_boxes_plain(tex: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,36 +132,44 @@ def tap_footprint_skips(grids: torch.Tensor, boxes: torch.Tensor, h: int, w: int
 
 
 def grid_sample_multigrid_plain(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
-    """Per-channel grids: channels folded into the batch of ``grid_sample``."""
+    """Per-channel grids: channels folded into the batch of ``F.grid_sample``."""
     b, h, w, c = img.shape
     img_f = img.permute(0, 3, 1, 2).reshape(b * c, h, w, 1)
-    out = grid_sample(img_f, grids.reshape((b * c,) + tuple(grids.shape[2:])))
+    out = grid_sample_plain(img_f, grids.reshape((b * c,) + tuple(grids.shape[2:])))
     return out.reshape((b, c) + tuple(out.shape[1:3])).permute(0, 2, 3, 1)
 
 
 class _MultigridSampleCuda(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, img, grids):
-        return grid_sample_cuda(img.contiguous(), grids.float().contiguous())
+    """Per-channel-grid sample (K2') with the hand-written backward, which
+    reads the planes and boxes of the forward's pre-pass."""
 
     @staticmethod
+    def forward(ctx, img, grids):
+        out, planes, boxes = grid_sample_per_channel_cuda(img, grids)
+        ctx.save_for_backward(planes, boxes, grids)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the per-channel grid_sample kernel has no backward yet: it lands "
-            "with the training slice (the JAX package's folded VJP)")
+        planes, boxes, grids = ctx.saved_tensors
+        g_img, g_grids = grid_sample_per_channel_bwd_cuda(
+            planes, boxes, grids, grad.float().contiguous(), ctx.needs_input_grad[0])
+        return g_img, g_grids if ctx.needs_input_grad[1] else None
 
 
 def grid_sample_multigrid(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     """Per-channel-grid sampling: out[..., k] samples img[..., k] along
     grids[:, k]. img (B,H,W,C), grids (B,C,Ho,Wo,2) -> (B,Ho,Wo,C)."""
     if img.is_cuda:
-        return _MultigridSampleCuda.apply(img, grids)
+        _require_float32(img, grids, "per-channel grid_sample")
+        return _MultigridSampleCuda.apply(img.contiguous(), grids.float().contiguous())
     return grid_sample_multigrid_plain(img, grids)
 
 
 def grid_sample_ctx_plain(img: torch.Tensor, grid: torch.Tensor, tp_sz: int) -> torch.Tensor:
     rep = img if tp_sz == 1 else img.repeat_interleave(tp_sz, dim=0)
-    return grid_sample(rep, grid)
+    return grid_sample_plain(rep, grid)
 
 
 def grid_sample_ctx(img: torch.Tensor, grid: torch.Tensor, *, tp_sz: int) -> torch.Tensor:
@@ -111,7 +181,7 @@ def grid_sample_ctx(img: torch.Tensor, grid: torch.Tensor, *, tp_sz: int) -> tor
     if grid.shape[0] != f * tp_sz:
         raise ValueError(f"grid rows {grid.shape[0]} != {f} textures * tp_sz {tp_sz}")
     if img.is_cuda:
-        return grid_sample_cuda(img.contiguous(), grid.float().contiguous(), tp_sz)
+        return _grid_sample_kernel(img, grid, tp_sz)
     return grid_sample_ctx_plain(img, grid, tp_sz)
 
 
