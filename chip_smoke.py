@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
      TF32 settings (both set off: the checks below are float32);
-  2. build: compiles every CUDA kernel of the port from its sources;
+  2. build: compiles every CUDA kernel of the port from its sources, and
+     the K2' backward's row-strip yardstick;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at ragged small shapes (bias_act: all nine
      activations, with and without bias, gain and clamp); the samplers'
@@ -39,8 +40,14 @@ Phases, in order; any failure exits non-zero:
      ms per step and clips/s on one fixed batch, peak memory; the two
      samples' forward and backward kernels against their plain versions at
      the path's shapes (dense and object-sparse inputs, an all-zero plane,
-     grids on the pixel lattice and wholly out of range) and timed beside
-     their bounds and ATen's backward; a small float32 step, card vs CPU.
+     grids on the pixel lattice and wholly out of range, a zoom; for the
+     K2' backward also planes over its shared-memory cap) and timed beside
+     their bounds and ATen's backward; the K2' backward also split into its
+     wrapper, kernel, kernel without grad_img and the wrapper's other
+     passes, and timed in turns against its row-strip yardstick
+     (csrc/yardstick/), on those inputs and on the inputs one training step
+     hands it (with their layout and share of zero output gradient); a small
+     float32 step, card vs CPU.
 With --profile DIR, phases 4, 5 and 7 also trace one predict, one MAT clip
 and one training step with torch.profiler and write the device time per
 span and per kernel, and the device's idle share, to
@@ -78,6 +85,8 @@ BWD_SOURCE = "waldo_tpu_torch/csrc/grid_sample_bwd.cu"
 # in its two modes (_pallas_bwd and _pallas_mg_bwd, XLA code on the TPU)
 K2_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:166"
 K2PC_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:219"
+# the per-channel backward's row-strip design, under waldo_tpu_torch/csrc/
+ROWS_BWD_SOURCE = "yardstick/grid_sample_bwd_rows.cu"
 TRAIN_SCRIPT = "scripts/cityscapes/train_lvd.sh"
 TRAIN_ITERS = 3  # Trainer.run iterations of the training phase
 TRAIN_TIMED = 5  # timed steps on one fixed batch
@@ -276,11 +285,12 @@ def phase_device():
 
 
 def phase_build():
-    from waldo_tpu_torch.ops.kernels import build_all
+    from waldo_tpu_torch.ops.kernels import KERNELS, build
 
     log("== 2. build")
     t0 = time.perf_counter()
-    report = build_all()
+    # every kernel of the port, and the K2' backward's row-strip yardstick
+    report = build(sorted({k.source for k in KERNELS.values()} | {ROWS_BWD_SOURCE}))
     for src, r in report.items():
         log(f"built {src} in {r['seconds']:.1f} s")
         for line in r["log"].splitlines():
@@ -288,7 +298,27 @@ def phase_build():
                 log(f"  {line.strip()}")
     total = time.perf_counter() - t0
     log(f"build wall time {total:.1f} s")
-    return total
+    sass = sass_atomics("grid_sample_bwd.cu")
+    log(f"atomics in the SASS of grid_sample_bwd.cu: {sass}")
+    return total, sass
+
+
+def sass_atomics(source):
+    """Counts of the atomic instructions in the SASS of a built kernel
+    library (cuobjdump beside nvcc; a float atomicAdd on shared memory shows
+    as ATOMS.CAST.SPIN, a compare-and-swap loop, where sm_90 has no native
+    shared float add), or why there are none."""
+    import re
+
+    from waldo_tpu_torch.ops.kernels.build import _nvcc, library_path
+
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return "not read (no cuobjdump beside nvcc)"
+    sass = subprocess.run([tool, "-sass", str(library_path(source))], capture_output=True,
+                          text=True, timeout=120).stdout
+    found = re.findall(r"\b(?:ATOMS|ATOMG|ATOM|REDG|RED)\.[.A-Z0-9_]*", sass)
+    return {k: found.count(k) for k in sorted(set(found))}
 
 
 def phase_kernels(dev):
@@ -1049,9 +1079,10 @@ def train_kernel_inputs(rng, f, h, w, c, dev):
     edge cases in named layers / rows: per-channel texture (F, H, W, C) with
     layer 0 dense, layer 1 all zero, the others object-sparse; grids with
     layer 2 exactly on the pixel lattice (flow 0), layer 3 on it shifted by
-    whole pixels, layer 4 wholly out of range, the rest smooth warps with
-    holes. Batch-mode texture (F, H, W, 23) dense, rows 0-1 zero, rows 2-3
-    object-sparse; grid rows 4-5 on the lattice, 6-7 out of range."""
+    whole pixels, layer 4 wholly out of range, layer 5 a 3-fold shrink
+    about a random centre per row (a zoom), the rest smooth warps with
+    holes. Batch-mode texture (F, H, W, 23) dense, rows 0-1 zero, rows
+    2-3 object-sparse; grid rows 4-5 on the lattice, 6-7 out of range."""
     import torch
     from waldo_tpu_torch.ops import get_grid
 
@@ -1063,6 +1094,8 @@ def train_kernel_inputs(rng, f, h, w, c, dev):
     grids[:, 2] = base
     grids[:, 3] = base + shift
     grids[:, 4] += 3.0
+    centre = torch.from_numpy(rng.uniform(-0.5, 0.5, (f, 1, 1, 2)).astype(np.float32)).to(dev)
+    grids[:, 5] = base * 3.0 + centre
     img = torch.from_numpy(rng.rand(f, h, w, 23).astype(np.float32) * 2 - 1).to(dev)
     img[:2] = 0.0
     img[2:4] *= (sparse_alpha(rng, 2, h, w, 2, dev)[..., 1:] > 0)
@@ -1073,22 +1106,146 @@ def train_kernel_inputs(rng, f, h, w, c, dev):
     return tex, grids.contiguous(), img, grid
 
 
-def phase_train_kernels(dev, card_name, run_launches):
+_ROWS_BWD = []
+
+
+def rows_bwd():
+    """The per-channel backward's row-strip design (device atomics into
+    planes, then a permute), kept in csrc/yardstick/ as the plane kernel's
+    yardstick: built and launched by this script alone, never counted."""
+    import ctypes
+
+    from waldo_tpu_torch.ops.kernels.build import CudaKernel
+
+    if not _ROWS_BWD:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _ROWS_BWD.append(CudaKernel(ROWS_BWD_SOURCE, "waldo_grid_sample_per_channel_bwd_rows",
+                                    [p] * 6 + [i] * 6 + [p]))
+    return _ROWS_BWD[0]
+
+
+def rows_bwd_call(planes, boxes, grids, gout, g_grid, g_planes):
+    import torch
+
+    f, c, h, w = planes.shape
+    rows_bwd().launch(None, planes.data_ptr(), boxes.data_ptr(), grids.data_ptr(),
+                      gout.data_ptr(), g_grid.data_ptr(),
+                      None if g_planes is None else g_planes.data_ptr(), h, w, c, f,
+                      grids.shape[2], grids.shape[3], torch.cuda.current_stream().cuda_stream)
+
+
+def rows_bwd_wrapper(planes, boxes, grids, gout):
+    """The row-strip design as it ran on the training step: grad_out made
+    channel-last (its autograd function's copy), zero-filled planes, the
+    kernel, a permute copy to (F, H, W, C)."""
+    import torch
+
+    gout = gout.contiguous()
+    g_grid, g_planes = torch.empty_like(grids), torch.zeros_like(planes)
+    rows_bwd_call(planes, boxes, grids, gout, g_grid, g_planes)
+    return g_planes.permute(0, 2, 3, 1).contiguous(), g_grid
+
+
+def bwd_split(planes, boxes, grids, gout, reps=10):
+    """Both per-channel backward designs on one grad_out (F, Ho, Wo, C), laid
+    out as planes where the training step hands it over so: (a) the wrapper,
+    (b) the kernel launch alone into preallocated outputs, (c) the kernel
+    without grad_img, (d) the wrapper's other passes alone (the row-strip
+    design's copy of grad_out to channel-last, memset and permute; the plane
+    design has none on planes and pays one copy to planes on a channel-last
+    grad_out, (e)). CUDA events after warm-up; the two wrappers in turns
+    (row-strip, plane, plane, row-strip)."""
+    import torch
+    from waldo_tpu_torch.ops.kernels import grid_sample_per_channel_bwd_cuda
+    from waldo_tpu_torch.ops.kernels.grid_sample import per_channel_bwd_launch
+
+    gout_cl, gout_planes = gout.contiguous(), gout.permute(0, 3, 1, 2).contiguous()
+    g_grid, g_planes = torch.empty_like(grids), torch.zeros_like(planes)
+    rows = lambda: rows_bwd_wrapper(planes, boxes, grids, gout)
+    plane = lambda: grid_sample_per_channel_bwd_cuda(planes, boxes, grids, gout, True)
+    out = {"rows": dict(
+        kernel=cuda_time(lambda: rows_bwd_call(planes, boxes, grids, gout_cl, g_grid, g_planes),
+                         reps),
+        kernel_no_img=cuda_time(lambda: rows_bwd_call(planes, boxes, grids, gout_cl, g_grid, None),
+                                reps),
+        copy_grad_out=cuda_time(lambda: gout.contiguous(), reps),
+        memset=cuda_time(lambda: torch.zeros_like(planes), reps),
+        permute=cuda_time(lambda: g_planes.permute(0, 2, 3, 1).contiguous(), reps)),
+        "plane": dict(
+        kernel=cuda_time(lambda: per_channel_bwd_launch(planes, boxes, grids, gout_planes, g_grid,
+                                                        g_planes), reps),
+        kernel_no_img=cuda_time(lambda: per_channel_bwd_launch(planes, boxes, grids, gout_planes,
+                                                               g_grid, None), reps),
+        wrapper_channel_last=cuda_time(lambda: grid_sample_per_channel_bwd_cuda(
+            planes, boxes, grids, gout_cl, True), reps))}
+    del g_grid, g_planes, gout_cl
+    out["rows"]["wrapper"], out["plane"]["wrapper"] = [], []
+    for k, fn in (("rows", rows), ("plane", plane), ("plane", plane), ("rows", rows)):
+        out[k]["wrapper"].append(cuda_time(fn, reps))
+    return out
+
+
+def log_split(label, sp):
+    r, t = sp["rows"], sp["plane"]
+    log(f"  K2' backward, {label} (ms; wrappers in turns row-strip, plane, plane, row-strip): "
+        f"row-strip (a) wrapper {r['wrapper'][0]:.4f} / {r['wrapper'][1]:.4f}, (b) kernel "
+        f"{r['kernel']:.4f}, (c) no grad_img {r['kernel_no_img']:.4f}, (d) grad_out copy "
+        f"{r['copy_grad_out']:.4f}, memset {r['memset']:.4f}, permute {r['permute']:.4f}; plane "
+        f"(a) {t['wrapper'][0]:.4f} / {t['wrapper'][1]:.4f}, (b) {t['kernel']:.4f}, (c) "
+        f"{t['kernel_no_img']:.4f}, (e) on channel-last grad_out {t['wrapper_channel_last']:.4f}")
+
+
+def grad_out_stats(gout):
+    """How a K2' backward's grad_out (F, Ho, Wo, C) is laid out, and the
+    share of it that is exactly 0 (those samples read nothing more)."""
+    return {"stride": list(gout.stride()), "planes": gout.permute(0, 3, 1, 2).is_contiguous(),
+            "zero_share": float((gout == 0).float().mean())}
+
+
+def capture_pc_bwd_inputs(tr, mode, batch):
+    """One training step with the K2' backward's inputs (planes, boxes,
+    grids, grad_out) copied as the autograd function hands them over, in
+    their memory layout (clone keeps the strides)."""
+    import importlib
+
+    # the module (the package's grid_sample attribute is the function)
+    gs = importlib.import_module("waldo_tpu_torch.ops.grid_sample")
+    orig, seen = gs.grid_sample_per_channel_bwd_cuda, []
+
+    def spy(planes, boxes, grids, grad_out, need_img):
+        seen.append([t.clone() for t in (planes, boxes, grids, grad_out)] + [need_img])
+        return orig(planes, boxes, grids, grad_out, need_img)
+
+    gs.grid_sample_per_channel_bwd_cuda = spy
+    try:
+        tr.step(mode, batch, 0)
+    finally:
+        gs.grid_sample_per_channel_bwd_cuda = orig
+    check(len(seen) == 1 and seen[0][4], f"expected one K2' backward with grad_img in a step, got "
+                                         f"{len(seen)}")
+    return seen[0][:4]
+
+
+def phase_train_kernels(dev, card_name, run_launches, step_inputs):
     """The training path's samples at train_lvd's shapes (B*Tc*Tp = 112 rows of
     128x256): K2' (per-channel, C=17) and K2 in batch mode (C=23), each
     forward and hand-written backward against the plain version's autograd,
     on the edge cases of train_kernel_inputs and on dense inputs; then each
-    timed beside its bound, the plain version and one ATen call."""
+    timed beside its bound, the plain version and one ATen call. The K2'
+    backward is also split and timed against its row-strip yardstick, on
+    those inputs and on step_inputs, the ones a training step handed it."""
     import torch
     import torch.nn.functional as F
-    from waldo_tpu_torch.ops.grid_sample import grid_sample_multigrid_plain, grid_sample_plain
+    from waldo_tpu_torch.ops import get_grid
+    from waldo_tpu_torch.ops.grid_sample import (BWD_PLANE_CAP, grid_sample_multigrid_plain,
+                                                 grid_sample_plain)
     from waldo_tpu_torch.ops.kernels import (grid_sample_bwd_cuda, grid_sample_cuda,
                                              grid_sample_per_channel_bwd_cuda,
                                              grid_sample_per_channel_cuda)
 
     rng = np.random.RandomState(4)
     f, h, w, c, p = 112, 128, 256, 17, 128 * 256
-    rows, errs = [], {}
+    rows, errs, bwd_res = [], {}, {}
 
     def rel(got, want, label):
         scale = float(want.abs().max())
@@ -1105,7 +1262,8 @@ def phase_train_kernels(dev, card_name, run_launches):
         return out.detach(), list(gs)
 
     tex, grids, img, grid = train_kernel_inputs(rng, f, h, w, c, dev)
-    gout_pc = torch.randn(f, h, w, c, device=dev)
+    # the K2' backward's grad_out laid out as planes, as the training step hands it over
+    gout_pc = torch.randn(f, c, h, w, device=dev).permute(0, 2, 3, 1)
     gout_b = torch.randn(f, h, w, 23, device=dev)
 
     # K2' forward and backward, edge cases by layer
@@ -1125,9 +1283,54 @@ def phase_train_kernels(dev, card_name, run_launches):
     rel(g_img[..., 2:4], w_img[..., 2:4], "grad_img on the pixel lattice (layers 2, 3)")
     check(not bool(g_grid[:, 4].any()) and not bool(w_grid[:, 4].any()),
           "grad_grid of a grid wholly out of range is not 0")
-    rel(g_grid[:, 5:], w_grid[:, 5:], "grad_grid of the object-sparse layers")
+    rel(g_img[..., 5], w_img[..., 5], "grad_img of the zoom layer (5)")
+    rel(g_grid[:, 5], w_grid[:, 5], "grad_grid of the zoom layer (5)")
+    rel(g_grid[:, 6:], w_grid[:, 6:], "grad_grid of the object-sparse layers")
     errs["pc_bwd"] = max(float((g_img - w_img).abs().max()), float((g_grid - w_grid).abs().max()))
-    del out, planes, boxes, g_img, g_grid, w_out, w_img, w_grid
+    y_img, y_grid = rows_bwd_wrapper(planes, boxes, grids, gout_pc)
+    torch.cuda.synchronize()
+    rel(y_img, w_img, "row-strip yardstick: grad_img")
+    rel(y_grid, w_grid, "row-strip yardstick: grad_grid")
+    del out, g_img, g_grid, w_out, w_img, w_grid, y_img, y_grid
+    bwd_res["split_edge_inputs"] = bwd_split(planes, boxes, grids, gout_pc)
+    log_split("train_kernel_inputs", bwd_res["split_edge_inputs"])
+    del planes, boxes
+
+    # planes over the kernel's shared-memory cap take its device-atomic branch
+    fo, ho_, wo_, co = 4, 256, 512, 3
+    check(ho_ * wo_ > BWD_PLANE_CAP, "the oversized planes fit the shared-memory cap")
+    tex_o = torch.rand(fo, ho_, wo_, co, device=dev)
+    grids_o = smooth_grids(rng, fo, co, ho_, wo_, dev)
+    grids_o[:, 0] = torch.as_tensor(get_grid(ho_, wo_), device=dev) * 3.0  # a zoom too
+    gout_o = torch.randn(fo, co, ho_, wo_, device=dev).permute(0, 2, 3, 1)
+    _, planes_o, boxes_o = grid_sample_per_channel_cuda(tex_o, grids_o)
+    g_img, g_grid = grid_sample_per_channel_bwd_cuda(planes_o, boxes_o, grids_o, gout_o, True)
+    _, (w_img, w_grid) = plain_grads(grid_sample_multigrid_plain, (tex_o, grids_o), (True, True),
+                                     gout_o)
+    torch.cuda.synchronize()
+    log(f"K2' backward on {fo}x{ho_}x{wo_} C={co} planes, over the {BWD_PLANE_CAP}-texel cap:")
+    errs["pc_bwd"] = max(errs["pc_bwd"], rel(g_img, w_img, "grad_img"),
+                         rel(g_grid, w_grid, "grad_grid"))
+    del tex_o, grids_o, gout_o, planes_o, boxes_o, g_img, g_grid, w_img, w_grid
+
+    # K2' backward on the inputs a training step handed it
+    s_planes, s_boxes, s_grids, s_gout = step_inputs
+    s_tex = s_planes.permute(0, 2, 3, 1).contiguous()
+    st = bwd_res["step_inputs"] = grad_out_stats(s_gout)
+    log(f"K2' backward on one training step's own inputs {tuple(s_gout.shape)}: grad_out "
+        f"strides {st['stride']} ({'planes' if st['planes'] else 'not planes'}), "
+        f"{st['zero_share']:.4g} of it exactly 0")
+    g_img, g_grid = grid_sample_per_channel_bwd_cuda(s_planes, s_boxes, s_grids, s_gout, True)
+    _, (w_img, w_grid) = plain_grads(grid_sample_multigrid_plain, (s_tex, s_grids), (True, True),
+                                     s_gout)
+    torch.cuda.synchronize()
+    errs["pc_bwd"] = max(errs["pc_bwd"], rel(g_img, w_img, "grad_img, a training step's inputs"),
+                         rel(g_grid, w_grid, "grad_grid, a training step's inputs"))
+    del g_img, g_grid, w_img, w_grid, s_tex
+    bwd_res["split_step_inputs"] = bwd_split(s_planes, s_boxes, s_grids, s_gout)
+    log_split("a training step's inputs", bwd_res["split_step_inputs"])
+    del s_planes, s_boxes, s_grids, s_gout, step_inputs
+    torch.cuda.empty_cache()
 
     # K2 batch mode forward and backward, edge cases by row
     log(f"K2 batch-mode sample {f}x{h}x{w} C=23, forward and backward")
@@ -1160,9 +1363,11 @@ def phase_train_kernels(dev, card_name, run_launches):
     errs["pc_bwd"] = max(errs["pc_bwd"], rel(g_img, w_img, "grad_img"),
                          rel(g_grid, w_grid, "grad_grid"))
     del w_img, w_grid
+    bwd_res["split_dense"] = bwd_split(planes, boxes, grids, gout_pc)
+    log_split("dense inputs", bwd_res["split_dense"])
     tex_fold = tex.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
     grids_fold = grids.reshape(f * c, h, w, 2)
-    gout_fold = gout_pc.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
+    gout_fold = gout_pc.permute(0, 3, 1, 2).reshape(f * c, 1, h, w)  # a view: planes
     aten_bwd = torch.ops.aten.grid_sampler_2d_backward
     fwd = dict(
         ms=cuda_time(lambda: grid_sample_per_channel_cuda(tex, grids), 10),
@@ -1231,7 +1436,7 @@ def phase_train_kernels(dev, card_name, run_launches):
         log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
             f"library {r['library_ms']:.4f} ms")
-    return rows
+    return rows, bwd_res
 
 
 def phase_train(dev, card_name, profile_dir=None):
@@ -1335,6 +1540,7 @@ def phase_train(dev, card_name, profile_dir=None):
             f"{peak_gb:.2f} GB; loss {loss:.5f}; launches per step {step_launches}")
         prof = (phase_profile(lambda: tr.step(mode, batch, 0), profile_dir, "_train")
                 if profile_dir else None)
+        step_inputs = capture_pc_bwd_inputs(tr, mode, batch)
 
         # pxl_vid, a loss of the mode that reads the fused frames, puts the
         # context fusion's backward (K2 batch mode) on the step
@@ -1356,8 +1562,9 @@ def phase_train(dev, card_name, profile_dir=None):
         shutil.rmtree(root, ignore_errors=True)
 
     # each kernel's launches from the run; K2's backward's from the pxl_vid step
-    rows = phase_train_kernels(dev, card_name,
-                               dict(run_launches, grid_sample_bwd=px_launches["grid_sample_bwd"]))
+    rows, bwd_res = phase_train_kernels(
+        dev, card_name, dict(run_launches, grid_sample_bwd=px_launches["grid_sample_bwd"]),
+        step_inputs)
 
     # a small float32 step on the card against the same step on the CPU, on
     # a training clip drawn from a seeded stream (the same in every process)
@@ -1395,7 +1602,7 @@ def phase_train(dev, card_name, profile_dir=None):
             "launches_pxl_vid_step": px_launches,
             "small_step_loss_err": e_loss, "small_step_grad_tol_ratio": ratio,
             "scatter_inversion_diff_share": share, "scatter_inversion_err": e_inv,
-            "profile": prof}, rows
+            "k2pc_backward": bwd_res, "profile": prof}, rows
 
 
 
@@ -1419,7 +1626,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name, card_line = phase_device()
-    build_s = phase_build()
+    build_s, bwd_sass = phase_build()
     errs, per_channel = phase_kernels(dev)
     main_res, k1_seen = phase_main(dev, args.iters, args.profile)
     mat_res = phase_mat(dev, args.profile)
@@ -1434,8 +1641,8 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(jsonable({"card": card_line, "build_s": build_s,
-                                "per_channel": per_channel, "main": main_res, "mat": mat_res,
-                                "train": train_res,
+                                "bwd_sass_atomics": bwd_sass, "per_channel": per_channel,
+                                "main": main_res, "mat": mat_res, "train": train_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -11,11 +11,12 @@
 //               grad_grid is asked for);
 //   per-channel planes (F, C, H, W) and their nonzero boxes (F, C, 4) from
 //               the forward's pre-pass (planes.cu), grids (F, C, Ho, Wo, 2),
-//               grad_out (F, Ho, Wo, C) -> grad_grids (F, C, Ho, Wo, 2) and,
-//               if asked, grad_planes (F, C, H, W) (the training path's
-//               unfused alpha_ctx warp, _pallas_mg_bwd, at (112, 128, 256,
-//               17); the alphas come from LVD's parameters, so grad_img is
-//               asked for), C <= 32.
+//               grad_out as planes (F, C, Ho, Wo) -> grad_grids (F, C, Ho,
+//               Wo, 2) and, if asked, grad_img as planes (F, C, H, W) (the
+//               training path's unfused alpha_ctx warp, _pallas_mg_bwd, at
+//               (112, 128, 256, 17); the alphas come from LVD's parameters,
+//               so grad_img is asked for; the caller holds both gradients as
+//               planes), C <= 32.
 //
 // The derivative follows torch's grid_sampler_2d_backward: floor taps, so
 // a sample exactly on a texel centre takes the one-sided difference towards
@@ -23,7 +24,8 @@
 //
 // Bound on an H100: memory. Per output sample the kernels read the grid
 // point, the output gradient and four texels and write the grid gradient,
-// a few flop each; grad_img adds four float atomics per sample.
+// a few flop each; grad_img adds four tap terms per sample, summed where
+// they meet.
 // Design (shared mode), as the forward's: a block takes 128 output pixels of
 // one row, computes each pixel's taps once into shared memory, then walks
 // the (pixel, channel) values channel-fastest, so its grad_out reads are one
@@ -31,15 +33,19 @@
 // neighbouring channels of neighbouring texels; each value's two grid-
 // gradient terms meet their pixel's in shared memory (no atomics), summed by
 // two threads a pixel (one thread a pixel left half the block idle).
-// Design (per-channel mode): as the forward, a block takes 128 output pixels
-// of one row and all C layers, a warp being 32 pixels of one layer; the
-// block stages its (128 x C) slice of grad_out, one contiguous span, in
-// shared memory. The grid gradient skips the texel reads of a sample whose
-// 2x2 footprint misses its plane's nonzero box (its four texels are zero,
-// so is its derivative); grad_img may not skip by that box (a zero texel
-// still receives gradient), only where the output gradient is zero.
-// grad_planes take float atomics, summed in an order that changes from run
-// to run.
+// Design (per-channel mode): a block takes one plane (see the kernel), so
+// that a plane's grad_img can be summed in shared memory and stored once:
+// 250 MB written at the training shape, where device atomics into a
+// zero-filled output (the earlier design) also paid the memset and each
+// line's round trip from HBM for the read-modify-write. Smaller blocks,
+// output tiles with windows of their taps, measured slower on the H100
+// (PERF.md): float atomics on shared memory compile to compare-and-swap
+// loops on sm_90, and each tile's window still went out by device atomics. The grid gradient skips the texel reads of a sample whose 2x2
+// footprint misses its plane's nonzero box (its four texels are zero, so is
+// its derivative); grad_img may not skip by that box (a zero texel still
+// receives gradient), only where the output gradient is zero. Sums in
+// shared memory and by atomics come in an order that changes from run to
+// run.
 
 #include "bilinear.cuh"
 
@@ -47,8 +53,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBwPix = 128;  // shared mode: output pixels per block
-constexpr int kPcPix = 128;  // per-channel mode: output pixels per block
 constexpr int kMaxC = 32;    // channels a block stages at a time
+// per-channel mode: a block of kPlaneThreads takes one plane; a plane of at
+// most kPlaneCap texels (224 KB) accumulates its grad_img in shared memory
+constexpr int kPlaneThreads = 1024, kBatch = 4;
+constexpr int kPlaneCap = 56 * 1024;
 
 struct Valid {
   bool x0, x1, y0, y1;
@@ -150,62 +159,88 @@ __global__ void __launch_bounds__(kThreads) grid_sample_shared_bwd_kernel(
         make_float2(ax * (W * 0.5f), ay * (H * 0.5f));
 }
 
-// Per-channel grids: row n = blockIdx.y, pixels [p0, p0 + 128) of it, all C
-// layers. Thread t takes pixel t % 128 of layers t / 128, t / 128 + 2, ...
-__global__ void __launch_bounds__(kThreads) grid_sample_per_channel_bwd_kernel(
+// Per-channel grids: block b takes plane b = n * C + l, its grid (Ho, Wo, 2)
+// and its output gradient (Ho, Wo), both contiguous (the training path
+// hands the output gradient over as planes); thread t takes samples t,
+// t + kPlaneThreads, ..., kBatch at a time with their loads issued together
+// (one block an SM leaves few warps to hide latency with). A sample whose
+// output gradient is 0 reads nothing
+// more and writes a zero grid gradient; the grid gradient reads texels only
+// where the footprint meets the plane's nonzero box. kWindow (the plane has
+// at most kPlaneCap texels): the block owns its plane's grad_img in shared
+// memory, the four tap terms of each sample go in by shared-memory atomics
+// (a compare-and-swap loop on sm_90: a warp's 32 samples hit 32 different
+// texels, so they seldom retry), and the plane is stored once, coalesced:
+// no device atomic, no zero-filled output. Otherwise the block zeroes its
+// plane in device memory and the terms go there by device atomics.
+template <bool kWindow>
+__global__ void __launch_bounds__(kPlaneThreads) grid_sample_per_channel_bwd_kernel(
     const float* __restrict__ planes, const int4* __restrict__ boxes,
     const float* __restrict__ grid, const float* __restrict__ gout,
-    float* __restrict__ ggrid, float* __restrict__ gplanes, int H, int W, int C, int P) {
-  __shared__ float s_g[kPcPix * (kMaxC + 1)];
-  const int n = blockIdx.y, p0 = blockIdx.x * kPcPix;
-  const int np = min(kPcPix, P - p0);
-  const int S = C | 1;  // odd row stride: a warp's reads hit 32 banks
-
-  // the block's slice of grad_out is one contiguous span, read channel-fastest
-  const float* src = gout + ((size_t)n * P + p0) * C;
-  const int count = np * C;
-  const int dq = kThreads / C, dc = kThreads - dq * C;
-  int r = threadIdx.x / C, c = threadIdx.x - r * C;
-  for (int k = threadIdx.x; k < count; k += kThreads) {
-    s_g[r * S + c] = src[k];
-    r += dq;
-    c += dc;
-    if (c >= C) {
-      c -= C;
-      ++r;
+    float* __restrict__ ggrid, float* __restrict__ gimg, int H, int W, int P) {
+  extern __shared__ float4 s_plane4[];  // kWindow: the plane's grad_img
+  float* s_plane = reinterpret_cast<float*>(s_plane4);
+  const size_t b = blockIdx.x;
+  const int HW = H * W;
+  const int4 box = boxes[b];
+  const float* plane = planes + b * HW;
+  float* out = gimg == nullptr ? nullptr : gimg + b * HW;
+  float* acc = kWindow ? s_plane : out;
+  if (out != nullptr) {
+    for (int k = threadIdx.x; k < HW; k += kPlaneThreads) acc[k] = 0.f;
+    __syncthreads();
+  }
+  const float2* g = reinterpret_cast<const float2*>(grid) + b * P;
+  float2* gg = reinterpret_cast<float2*>(ggrid) + b * P;
+  const float* go_p = gout + b * P;
+  // kBatch samples a step, their loads issued together
+  for (int p0 = threadIdx.x; p0 < P; p0 += kPlaneThreads * kBatch) {
+    float go[kBatch];
+    Taps t[kBatch];
+    float v[kBatch][4];
+    bool hit[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int p = p0 + k * kPlaneThreads;
+      go[k] = p < P ? go_p[p] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const float2 gp = go[k] != 0.f ? g[p0 + k * kPlaneThreads] : make_float2(0.f, 0.f);
+      t[k] = top_left_tap(gp.x, gp.y, H, W);
+      hit[k] = go[k] != 0.f && !misses_box(t[k], box);
+      load_taps(plane, H, W, t[k], hit[k], v[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int p = p0 + k * kPlaneThreads;
+      float2 d = make_float2(0.f, 0.f);
+      if (hit[k]) {
+        d = tap_derivative(t[k], v[k]);
+        d.x *= go[k] * (W * 0.5f);
+        d.y *= go[k] * (H * 0.5f);
+      }
+      if (p < P) gg[p] = d;
+      if (out != nullptr && go[k] != 0.f) scatter_taps(acc, W, 1, t[k], valid_taps(t[k], H, W), go[k]);
     }
   }
-  __syncthreads();
-
-  const int q = threadIdx.x % kPcPix;
-  if (q >= np) return;
-  const float2* g = reinterpret_cast<const float2*>(grid) + (size_t)n * C * P + p0 + q;
-  float2* gg = reinterpret_cast<float2*>(ggrid) + (size_t)n * C * P + p0 + q;
-  for (int l = threadIdx.x / kPcPix; l < C; l += kThreads / kPcPix) {
-    const float2 gp = g[(size_t)l * P];
-    const Taps t = top_left_tap(gp.x, gp.y, H, W);
-    const float go = s_g[q * S + l];
-    const size_t plane = ((size_t)n * C + l) * H * W;
-    float2 d = make_float2(0.f, 0.f);
-    if (go != 0.f && !misses_box(t, boxes[n * C + l])) {
-      float v[4];
-      load_taps(planes + plane, H, W, t, true, v);
-      d = tap_derivative(t, v);
-      d.x *= go * (W * 0.5f);
-      d.y *= go * (H * 0.5f);
-    }
-    gg[(size_t)l * P] = d;
-    if (gplanes != nullptr && go != 0.f)
-      scatter_taps(gplanes + plane, W, 1, t, valid_taps(t, H, W), go);
+  if (kWindow && out != nullptr) {
+    __syncthreads();
+    if ((HW & 3) == 0)
+      for (int k = threadIdx.x; k < HW / 4; k += kPlaneThreads)
+        reinterpret_cast<float4*>(out)[k] = s_plane4[k];
+    else
+      for (int k = threadIdx.x; k < HW; k += kPlaneThreads) out[k] = s_plane[k];
   }
 }
 
 }  // namespace
 
 // per_channel: img holds the planes (F, C, H, W) and boxes their nonzero
-// boxes (planes.cu), gimg receives grad_planes (F, C, H, W); otherwise img
-// and gimg are (F, H, W, C) and boxes is unused. gimg may be null (no
-// texture gradient); when given it must hold zeros.
+// boxes (planes.cu), gout the output gradient as planes (F, C, Ho, Wo), and
+// gimg receives grad_planes (F, C, H, W), any contents before (every texel
+// is written); otherwise img, gout and gimg are channel-last, boxes is
+// unused and gimg must hold zeros. gimg may be null (no texture gradient).
 extern "C" int waldo_grid_sample_bwd(const void* img, const void* boxes, const void* grid,
                                      const void* gout, void* ggrid, void* gimg, int H, int W,
                                      int C, int N, int Ho, int Wo, int tp, int per_channel,
@@ -214,10 +249,21 @@ extern "C" int waldo_grid_sample_bwd(const void* img, const void* boxes, const v
   const int P = Ho * Wo;
   if (per_channel) {
     if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
-    const dim3 blocks((unsigned)((P + kPcPix - 1) / kPcPix), (unsigned)N);
-    grid_sample_per_channel_bwd_kernel<<<blocks, kThreads, 0, s>>>(
-        (const float*)img, (const int4*)boxes, (const float*)grid, (const float*)gout,
-        (float*)ggrid, (float*)gimg, H, W, C, P);
+    const unsigned blocks = (unsigned)N * (unsigned)C;
+    if (gimg != nullptr && H * W <= kPlaneCap) {
+      const int smem = H * W * 4;
+      const cudaError_t err = cudaFuncSetAttribute(
+          grid_sample_per_channel_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return (int)err;
+      grid_sample_per_channel_bwd_kernel<true><<<blocks, kPlaneThreads, smem, s>>>(
+          (const float*)img, (const int4*)boxes, (const float*)grid, (const float*)gout,
+          (float*)ggrid, (float*)gimg, H, W, P);
+    } else {
+      grid_sample_per_channel_bwd_kernel<false><<<blocks, kPlaneThreads, 0, s>>>(
+          (const float*)img, (const int4*)boxes, (const float*)grid, (const float*)gout,
+          (float*)ggrid, (float*)gimg, H, W, P);
+    }
   } else {
     const dim3 blocks((unsigned)((P + kBwPix - 1) / kBwPix), (unsigned)N);
     if (gimg != nullptr)

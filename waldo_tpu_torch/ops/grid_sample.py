@@ -19,10 +19,11 @@ sits exactly on a texel centre. ``warp_alpha_ctx`` (the fused predict-path
 warp) has no backward. ``plane_boxes_plain`` is the plain version of the
 pre-pass that feeds the per-layer samples of the kernels, and
 ``tap_footprint_skips`` the kernels' exact test for a sample that is 0
-without reading a texel (the TPU kernels' sparsity skip). The kernels and
-the plain versions compute in float32: the JAX signatures' ``precision``
-has no counterpart here, since "fast" sampling only decides where the
-callers store bf16 maps.
+without reading a texel (the TPU kernels' sparsity skip); ``bwd_tap_routes``
+models where the per-channel backward kernel sums each tap term of grad_img.
+The kernels and the plain versions compute in float32: the JAX signatures'
+``precision`` has no counterpart here, since "fast" sampling only decides
+where the callers store bf16 maps.
 """
 from __future__ import annotations
 
@@ -131,6 +132,34 @@ def tap_footprint_skips(grids: torch.Tensor, boxes: torch.Tensor, h: int, w: int
     return (x0 + 1 < b[..., 2]) | (x0 > b[..., 3]) | (y0 + 1 < b[..., 0]) | (y0 > b[..., 1])
 
 
+# the largest plane (texels) whose grad_img the per-channel backward kernel
+# sums in shared memory (csrc/grid_sample_bwd.cu: kPlaneCap)
+BWD_PLANE_CAP = 56 * 1024
+
+
+def bwd_tap_routes(grids: torch.Tensor, grad_out: torch.Tensor, h: int, w: int,
+                   cap: int = BWD_PLANE_CAP) -> torch.Tensor:
+    """The per-channel backward kernel's split of grad_img, in plain PyTorch:
+    grids (R, C, Ho, Wo, 2) sampling planes of size h x w, grad_out (R, Ho,
+    Wo, C). The kernel gives each plane a block; the window, which it sums
+    in shared memory and stores once, is the whole plane where it holds at
+    most ``cap`` texels, else there is none and every term goes to grad_img
+    by a device atomic. Returns (R, C, Ho, Wo, 4) int8 per tap, in tap order
+    (y0,x0) (y0,x1) (y1,x0) (y1,x1): 0 the tap adds nothing (off the plane,
+    or the output gradient is 0), 1 it adds into the window, 2 it adds
+    straight into grad_img (csrc/grid_sample_bwd.cu, per-channel mode)."""
+    def top_left(g, size):
+        i = (g + 1.0) * (size * 0.5) - 0.5
+        return torch.floor(i.clamp(-2.0, size + 1.0)).long()
+
+    x0, y0 = top_left(grids[..., 0].float(), w), top_left(grids[..., 1].float(), h)
+    xs = torch.stack([x0, x0 + 1, x0, x0 + 1], dim=-1)
+    ys = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
+    live = ((grad_out.permute(0, 3, 1, 2) != 0)[..., None]
+            & (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h))
+    return (live.to(torch.int8) * (1 if h * w <= cap else 2)).to(torch.int8)
+
+
 def grid_sample_multigrid_plain(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     """Per-channel grids: channels folded into the batch of ``F.grid_sample``."""
     b, h, w, c = img.shape
@@ -153,8 +182,10 @@ class _MultigridSampleCuda(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         planes, boxes, grids = ctx.saved_tensors
+        # grad keeps its layout: the kernel reads it as planes, as the
+        # training path hands it over
         g_img, g_grids = grid_sample_per_channel_bwd_cuda(
-            planes, boxes, grids, grad.float().contiguous(), ctx.needs_input_grad[0])
+            planes, boxes, grids, grad.float(), ctx.needs_input_grad[0])
         return g_img, g_grids if ctx.needs_input_grad[1] else None
 
 

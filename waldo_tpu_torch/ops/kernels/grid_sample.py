@@ -129,6 +129,21 @@ def grid_sample_bwd_cuda(img: torch.Tensor, grid: torch.Tensor, grad_out: torch.
     return g_img, g_grid
 
 
+def per_channel_bwd_launch(planes: torch.Tensor, boxes: torch.Tensor, grids: torch.Tensor,
+                           grad_planes: torch.Tensor, g_grid: torch.Tensor,
+                           g_img_planes: Optional[torch.Tensor]) -> None:
+    """Launch the K2' backward into given outputs: grad_planes is the output
+    gradient as contiguous (F, C, Ho, Wo) planes, g_grid like grids,
+    g_img_planes (F, C, H, W) (any contents: the kernel writes every texel)
+    or None for no texture gradient."""
+    f, c, h, w = planes.shape
+    ho, wo = grids.shape[2:4]
+    GRID_SAMPLE_PER_CHANNEL_BWD.launch(
+        f, planes.data_ptr(), boxes.data_ptr(), grids.data_ptr(), grad_planes.data_ptr(),
+        g_grid.data_ptr(), None if g_img_planes is None else g_img_planes.data_ptr(),
+        h, w, c, f, ho, wo, 1, 1, _stream(planes))
+
+
 def grid_sample_per_channel_bwd_cuda(planes: torch.Tensor, boxes: torch.Tensor,
                                      grids: torch.Tensor, grad_out: torch.Tensor,
                                      need_img: bool
@@ -136,7 +151,11 @@ def grid_sample_per_channel_bwd_cuda(planes: torch.Tensor, boxes: torch.Tensor,
     """Backward of the per-channel sample (K2'), float32 only, from the
     forward's planes (F, C, H, W) and boxes (F, C, 4): grids (F, C, Ho, Wo,
     2), grad_out (F, Ho, Wo, C). Returns (grad_img (F, H, W, C) or None
-    unless need_img, grad_grids)."""
+    unless need_img, grad_grids). The kernel works on planes: grad_out is
+    read as (F, C, Ho, Wo) planes, without a copy where its memory is laid
+    out so (the training path's is: its caller holds the sampled alphas as
+    planes), and grad_img is written as planes and returned as their (F, H,
+    W, C) view, which that caller turns back into planes without a copy."""
     if planes.dim() != 4 or boxes.shape != planes.shape[:2] + (4,):
         raise ValueError(f"planes must be (F, C, H, W) with boxes (F, C, 4), got "
                          f"{tuple(planes.shape)} and {tuple(boxes.shape)}")
@@ -150,14 +169,14 @@ def grid_sample_per_channel_bwd_cuda(planes: torch.Tensor, boxes: torch.Tensor,
     if grad_out.shape != (f, ho, wo, c):
         raise ValueError(f"grad_out {tuple(grad_out.shape)} does not fit grids "
                          f"{tuple(grids.shape)}")
-    if grad_out.dtype != torch.float32 or not grad_out.is_contiguous():
-        raise TypeError("grid_sample_per_channel_bwd_cuda takes a contiguous float32 grad_out")
+    if grad_out.dtype != torch.float32 or grad_out.device != planes.device:
+        raise TypeError("grid_sample_per_channel_bwd_cuda takes a float32 grad_out on the "
+                        "planes' device")
+    grad_planes = grad_out.permute(0, 3, 1, 2).contiguous()  # a view where it is laid out so
     g_grid = torch.empty_like(grids)
-    g_planes = torch.zeros_like(planes) if need_img else None
+    g_planes = None
+    if need_img:  # where the kernel runs it writes every texel
+        g_planes = torch.empty_like(planes) if g_grid.numel() > 0 else torch.zeros_like(planes)
     if g_grid.numel() > 0:
-        GRID_SAMPLE_PER_CHANNEL_BWD.launch(
-            f, planes.data_ptr(), boxes.data_ptr(), grids.data_ptr(), grad_out.data_ptr(),
-            g_grid.data_ptr(), None if g_planes is None else g_planes.data_ptr(),
-            h, w, c, f, ho, wo, 1, 1, _stream(planes))
-    g_img = None if g_planes is None else g_planes.permute(0, 2, 3, 1).contiguous()
-    return g_img, g_grid
+        per_channel_bwd_launch(planes, boxes, grids, grad_planes, g_grid, g_planes)
+    return None if g_planes is None else g_planes.permute(0, 2, 3, 1), g_grid
