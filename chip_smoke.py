@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
      TF32 settings (both set off: the checks below are float32);
   2. build: compiles every CUDA kernel of the port from its sources, and
-     the K2' backward's row-strip yardstick;
+     the two backwards' yardsticks (their earlier designs); prints each
+     kernel's registers and spills and the atomics in the backwards' SASS;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at ragged small shapes (bias_act: all nine
      activations, with and without bias, gain and clamp); the samplers'
@@ -41,13 +42,15 @@ Phases, in order; any failure exits non-zero:
      samples' forward and backward kernels against their plain versions at
      the path's shapes (dense and object-sparse inputs, an all-zero plane,
      grids on the pixel lattice and wholly out of range, a zoom; for the
-     K2' backward also planes over its shared-memory cap) and timed beside
-     their bounds and ATen's backward; the K2' backward also split into its
-     wrapper, kernel, kernel without grad_img and the wrapper's other
-     passes, and timed in turns against its row-strip yardstick
-     (csrc/yardstick/), on those inputs and on the inputs one training step
-     hands it (with their layout and share of zero output gradient); a small
-     float32 step, card vs CPU.
+     K2' backward also planes over its shared-memory cap; for the K2
+     backward also a shrink whose texture windows exceed its cap, ragged
+     shapes, tp_sz > 1 and a grad_out off 16-byte alignment) and timed
+     beside their bounds and ATen's backward; the K2' backward also split
+     into its wrapper, kernel, kernel without grad_img and the wrapper's
+     other passes; each backward timed in turns against its earlier design
+     (csrc/yardstick/), on those inputs and on the inputs a training step
+     hands it (K2's from a step with pxl_vid; with their layout and share of
+     zero output gradient); a small float32 step, card vs CPU.
 With --profile DIR, phases 4, 5 and 7 also trace one predict, one MAT clip
 and one training step with torch.profiler and write the device time per
 span and per kernel, and the device's idle share, to
@@ -85,8 +88,11 @@ BWD_SOURCE = "waldo_tpu_torch/csrc/grid_sample_bwd.cu"
 # in its two modes (_pallas_bwd and _pallas_mg_bwd, XLA code on the TPU)
 K2_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:166"
 K2PC_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:219"
-# the per-channel backward's row-strip design, under waldo_tpu_torch/csrc/
+# the first designs of the two backwards, kept as yardsticks under
+# waldo_tpu_torch/csrc/: the per-channel backward's row strips and the shared
+# backward's block-wide walk
 ROWS_BWD_SOURCE = "yardstick/grid_sample_bwd_rows.cu"
+SHARED_BWD_FIRST_SOURCE = "yardstick/grid_sample_shared_bwd_pr4.cu"
 TRAIN_SCRIPT = "scripts/cityscapes/train_lvd.sh"
 TRAIN_ITERS = 3  # Trainer.run iterations of the training phase
 TRAIN_TIMED = 5  # timed steps on one fixed batch
@@ -289,18 +295,55 @@ def phase_build():
 
     log("== 2. build")
     t0 = time.perf_counter()
-    # every kernel of the port, and the K2' backward's row-strip yardstick
-    report = build(sorted({k.source for k in KERNELS.values()} | {ROWS_BWD_SOURCE}))
+    # every kernel of the port, and the backwards' yardsticks
+    report = build(sorted({k.source for k in KERNELS.values()}
+                          | {ROWS_BWD_SOURCE, SHARED_BWD_FIRST_SOURCE}))
+    resources = {}
     for src, r in report.items():
         log(f"built {src} in {r['seconds']:.1f} s")
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {line.strip()}")
+        for fn, res in ptxas_resources(r["log"]).items():
+            log(f"  {fn}: {res}")
+            resources[f"{src}:{fn}"] = res
     total = time.perf_counter() - t0
     log(f"build wall time {total:.1f} s")
     sass = sass_atomics("grid_sample_bwd.cu")
     log(f"atomics in the SASS of grid_sample_bwd.cu: {sass}")
-    return total, sass
+    return total, sass, resources
+
+
+def ptxas_resources(build_log):
+    """Each kernel's registers and spills from ptxas' -v report, by its
+    name (the bool template argument, where there is one, in brackets)."""
+    import re
+
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = ""
+        elif name is not None and ("spill" in line or "registers" in line):
+            what = line.split(":", 1)[-1].strip() if line.startswith("ptxas") else line.strip()
+            out[name] = (out[name] + "; " if out[name] else "") + what
+    return out
+
+
+def kernel_name(mangled):
+    """The kernel's own name in an Itanium-mangled symbol (its nested names
+    are length-prefixed), with a leading bool template argument."""
+    import re
+
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if m is None:
+            return mangled
+        start = pos + m.end()
+        ident = mangled[start:start + int(m.group())]
+        pos = start + len(ident)
+        if ident.endswith("_kernel"):
+            t = re.match(r"ILb([01])E", mangled[pos:])
+            return ident + (f"<{t.group(1)}>" if t else "")
 
 
 def sass_atomics(source):
@@ -1082,7 +1125,9 @@ def train_kernel_inputs(rng, f, h, w, c, dev):
     whole pixels, layer 4 wholly out of range, layer 5 a 3-fold shrink
     about a random centre per row (a zoom), the rest smooth warps with
     holes. Batch-mode texture (F, H, W, 23) dense, rows 0-1 zero, rows
-    2-3 object-sparse; grid rows 4-5 on the lattice, 6-7 out of range."""
+    2-3 object-sparse; grid rows 4-5 on the lattice, 6-7 out of range, 8-9
+    a 3-fold shrink (the K2 backward's texture windows then exceed its
+    cap)."""
     import torch
     from waldo_tpu_torch.ops import get_grid
 
@@ -1103,25 +1148,54 @@ def train_kernel_inputs(rng, f, h, w, c, dev):
     grid[4] = base
     grid[5] = base - shift
     grid[6:8] += 3.0
+    grid[8:10] = base * 3.0
     return tex, grids.contiguous(), img, grid
 
 
-_ROWS_BWD = []
+_YARDSTICKS = {}
+
+
+def yardstick(source, symbol, argtypes):
+    """An earlier design of a kernel, kept in csrc/yardstick/ as the
+    current one's yardstick: built and launched by this script alone, never
+    counted."""
+    from waldo_tpu_torch.ops.kernels.build import CudaKernel
+
+    if source not in _YARDSTICKS:
+        _YARDSTICKS[source] = CudaKernel(source, symbol, argtypes)
+    return _YARDSTICKS[source]
 
 
 def rows_bwd():
     """The per-channel backward's row-strip design (device atomics into
-    planes, then a permute), kept in csrc/yardstick/ as the plane kernel's
-    yardstick: built and launched by this script alone, never counted."""
+    planes, then a permute)."""
     import ctypes
 
-    from waldo_tpu_torch.ops.kernels.build import CudaKernel
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return yardstick(ROWS_BWD_SOURCE, "waldo_grid_sample_per_channel_bwd_rows",
+                     [p] * 6 + [i] * 6 + [p])
 
-    if not _ROWS_BWD:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _ROWS_BWD.append(CudaKernel(ROWS_BWD_SOURCE, "waldo_grid_sample_per_channel_bwd_rows",
-                                    [p] * 6 + [i] * 6 + [p]))
-    return _ROWS_BWD[0]
+
+def shared_bwd_first(img, grid, gout, tp, need_img):
+    """The shared backward's first design (a block-wide walk of its values,
+    one in flight a thread, two block barriers) on contiguous float32
+    inputs, as the wrapper of the current kernel takes them: (grad_img or
+    None, grad_grid)."""
+    import ctypes
+
+    import torch
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    k = yardstick(SHARED_BWD_FIRST_SOURCE, "waldo_grid_sample_shared_bwd_first",
+                  [p] * 5 + [i] * 7 + [p])
+    f, h, w, c = img.shape
+    rows, ho, wo = grid.shape[:3]
+    g_grid = torch.empty_like(grid)
+    g_img = torch.zeros_like(img) if need_img else None
+    k.launch(None, img.data_ptr(), grid.data_ptr(), gout.data_ptr(), g_grid.data_ptr(),
+             None if g_img is None else g_img.data_ptr(), h, w, c, rows, ho, wo, tp,
+             torch.cuda.current_stream().cuda_stream)
+    return g_img, g_grid
 
 
 def rows_bwd_call(planes, boxes, grids, gout, g_grid, g_planes):
@@ -1196,10 +1270,45 @@ def log_split(label, sp):
 
 
 def grad_out_stats(gout):
-    """How a K2' backward's grad_out (F, Ho, Wo, C) is laid out, and the
-    share of it that is exactly 0 (those samples read nothing more)."""
-    return {"stride": list(gout.stride()), "planes": gout.permute(0, 3, 1, 2).is_contiguous(),
-            "zero_share": float((gout == 0).float().mean())}
+    """How a backward's grad_out (rows, Ho, Wo, C) is handed over: its type,
+    strides, whether it is contiguous or laid out as (rows, C, Ho, Wo)
+    planes, the share of it that is exactly 0 (those samples read no
+    texel) and the channels that are not 0 everywhere."""
+    live = (gout != 0).flatten(0, -2).any(0)
+    return {"dtype": str(gout.dtype), "stride": list(gout.stride()),
+            "contiguous": gout.is_contiguous(), "planes": gout.permute(0, 3, 1, 2).is_contiguous(),
+            "zero_share": float((gout == 0).float().mean()),
+            "live_channels": [int(c) for c in live.nonzero()[:, 0]]}
+
+
+def capture_k2_bwd_inputs(tr, mode, batch):
+    """One training step with the K2 backward's inputs copied as its
+    autograd function holds them: the texture and grid it saved, and the
+    output gradient autograd hands it (how that is laid out is read before
+    the copy). Returns (the step's metrics, (img, grid, tp_sz, grad_out,
+    grad_out's stats))."""
+    import importlib
+
+    gs = importlib.import_module("waldo_tpu_torch.ops.grid_sample")
+    orig, seen = gs._grid_sample_kernel, []
+
+    def spy(img, grid, tp_sz):
+        out = orig(img, grid, tp_sz)
+        if out.requires_grad:
+            rec = [img.detach().contiguous().clone(), grid.detach().float().contiguous().clone(),
+                   tp_sz]
+            out.register_hook(lambda g: rec.extend([g.detach().clone(), grad_out_stats(g)]))
+            seen.append(rec)
+        return out
+
+    gs._grid_sample_kernel = spy
+    try:
+        metrics = tr.step(mode, batch, 0)
+    finally:
+        gs._grid_sample_kernel = orig
+    check(len(seen) == 1 and len(seen[0]) == 5,
+          f"expected one K2 sample with a backward in the step, got {len(seen)}")
+    return metrics, seen[0]
 
 
 def capture_pc_bwd_inputs(tr, mode, batch):
@@ -1226,19 +1335,23 @@ def capture_pc_bwd_inputs(tr, mode, batch):
     return seen[0][:4]
 
 
-def phase_train_kernels(dev, card_name, run_launches, step_inputs):
+def phase_train_kernels(dev, card_name, run_launches, step_inputs, k2_step_inputs):
     """The training path's samples at train_lvd's shapes (B*Tc*Tp = 112 rows of
     128x256): K2' (per-channel, C=17) and K2 in batch mode (C=23), each
     forward and hand-written backward against the plain version's autograd,
-    on the edge cases of train_kernel_inputs and on dense inputs; then each
-    timed beside its bound, the plain version and one ATen call. The K2'
-    backward is also split and timed against its row-strip yardstick, on
-    those inputs and on step_inputs, the ones a training step handed it."""
+    on the edge cases of train_kernel_inputs and on dense inputs (the K2
+    backward also at ragged shapes and tp_sz > 1); then each timed beside
+    its bound, the plain version and one ATen call. Each backward is also
+    timed in turns against its earlier design (csrc/yardstick/), on those
+    inputs and on the ones a training step handed it (step_inputs for K2',
+    k2_step_inputs, from a step with pxl_vid, for K2); the K2' backward is
+    split into its wrapper's parts."""
     import torch
     import torch.nn.functional as F
     from waldo_tpu_torch.ops import get_grid
-    from waldo_tpu_torch.ops.grid_sample import (BWD_PLANE_CAP, grid_sample_multigrid_plain,
-                                                 grid_sample_plain)
+    from waldo_tpu_torch.ops.grid_sample import (BWD_PLANE_CAP, grid_sample_ctx_plain,
+                                                 grid_sample_multigrid_plain, grid_sample_plain,
+                                                 shared_bwd_windows)
     from waldo_tpu_torch.ops.kernels import (grid_sample_bwd_cuda, grid_sample_cuda,
                                              grid_sample_per_channel_bwd_cuda,
                                              grid_sample_per_channel_cuda)
@@ -1332,25 +1445,7 @@ def phase_train_kernels(dev, card_name, run_launches, step_inputs):
     del s_planes, s_boxes, s_grids, s_gout, step_inputs
     torch.cuda.empty_cache()
 
-    # K2 batch mode forward and backward, edge cases by row
-    log(f"K2 batch-mode sample {f}x{h}x{w} C=23, forward and backward")
-    out = grid_sample_cuda(img, grid, 1)
-    g_img, g_grid = grid_sample_bwd_cuda(img, grid, gout_b, 1, True)
-    _, g_grid_only = grid_sample_bwd_cuda(img, grid, gout_b, 1, False)
-    w_out, (w_img, w_grid) = plain_grads(grid_sample_plain, (img, grid), (True, True), gout_b)
-    torch.cuda.synchronize()
-    errs["b_fwd"] = rel(out, w_out, "forward")
-    rel(g_img, w_img, "grad_img (not asked for on the path)")
-    rel(g_grid, w_grid, "grad_grid")
-    check(torch.equal(g_grid, g_grid_only), "grad_grid depends on whether grad_img is asked for")
-    rel(g_img[:2], w_img[:2], "grad_img of the all-zero textures (rows 0, 1)")
-    rel(g_grid[2:4], w_grid[2:4], "grad_grid of the object-sparse textures (rows 2, 3)")
-    rel(g_grid[4:6], w_grid[4:6], "grad_grid on the pixel lattice (rows 4, 5)")
-    check(not bool(g_grid[6:8].any()), "grad_grid of a grid wholly out of range is not 0")
-    errs["b_bwd"] = float((g_grid - w_grid).abs().max())
-    del out, g_img, g_grid, g_grid_only, w_out, w_img, w_grid
-
-    # dense inputs, checked and timed
+    # K2' on dense inputs, checked and timed
     tex = torch.rand(f, h, w, c, device=dev)
     grids = smooth_grids(rng, f, c, h, w, dev)
     out, planes, boxes = grid_sample_per_channel_cuda(tex, grids)
@@ -1395,6 +1490,38 @@ def phase_train_kernels(dev, card_name, run_launches, step_inputs):
     del tex, grids, out, planes, boxes, g_img, g_grid, ins, w_out, tex_fold, grids_fold, gout_fold
     torch.cuda.empty_cache()
 
+
+    # K2 batch mode forward and backward, edge cases by row
+    log(f"K2 batch-mode sample {f}x{h}x{w} C=23, forward and backward")
+    out = grid_sample_cuda(img, grid, 1)
+    g_img, g_grid = grid_sample_bwd_cuda(img, grid, gout_b, 1, True)
+    _, g_grid_only = grid_sample_bwd_cuda(img, grid, gout_b, 1, False)
+    w_out, (w_img, w_grid) = plain_grads(grid_sample_plain, (img, grid), (True, True), gout_b)
+    y_img, y_grid = shared_bwd_first(img, grid, gout_b, 1, True)
+    torch.cuda.synchronize()
+    errs["b_fwd"] = rel(out, w_out, "forward")
+    rel(g_img, w_img, "grad_img (not asked for on the path)")
+    rel(g_grid, w_grid, "grad_grid")
+    check(torch.equal(g_grid, g_grid_only), "grad_grid depends on whether grad_img is asked for")
+    check(float(w_img[:2].abs().max()) > 0, "the all-zero textures' plain grad_img is 0")
+    rel(g_img[:2], w_img[:2], "grad_img of the all-zero textures (rows 0, 1)")
+    rel(g_grid[2:4], w_grid[2:4], "grad_grid of the object-sparse textures (rows 2, 3)")
+    rel(g_grid[4:6], w_grid[4:6], "grad_grid on the pixel lattice (rows 4, 5)")
+    rel(g_img[4:6], w_img[4:6], "grad_img on the pixel lattice (rows 4, 5)")
+    check(not bool(g_grid[6:8].any()) and not bool(w_grid[6:8].any()),
+          "grad_grid of a grid wholly out of range is not 0")
+    staged = shared_bwd_windows(grid[8:10], h, w, 23)[..., 5]
+    check(not bool(staged.all()), "the shrink's texture windows all fit the cap")
+    rel(g_grid[8:10], w_grid[8:10], f"grad_grid of the 3-fold shrink (rows 8, 9; "
+                                    f"{float(staged.float().mean()):.2f} of its tiles staged)")
+    rel(y_img, w_img, "first-design yardstick: grad_img")
+    rel(y_grid, w_grid, "first-design yardstick: grad_grid")
+    errs["b_bwd"] = max(float((g_grid - w_grid).abs().max()), float((g_img - w_img).abs().max()))
+    del out, g_img, g_grid, g_grid_only, w_out, w_img, w_grid, y_img, y_grid
+    errs["b_bwd"] = max(errs["b_bwd"], k2_bwd_ragged_checks(dev, rng, rel, plain_grads))
+
+    # K2 on dense inputs, checked and timed
+    torch.cuda.empty_cache()
     img = torch.rand(f, h, w, 23, device=dev) * 2 - 1
     grid = smooth_grids(rng, f, 1, h, w, dev)[:, 0].contiguous()
     out = grid_sample_cuda(img, grid, 1)
@@ -1416,27 +1543,134 @@ def phase_train_kernels(dev, card_name, run_launches, step_inputs):
         ms=cuda_time(lambda: grid_sample_bwd_cuda(img, grid, gout_b, 1, False), 10),
         plain_ms=cuda_time(lambda: torch.autograd.grad(w_out, grid_p, gout_b, retain_graph=True),
                            3),
-        library_ms=cuda_time(lambda: aten_bwd(gout_nchw, img_nchw, grid, 0, 0, False,
-                                              [False, True]), 10))
+        library_ms=aten_grid_bwd_ms(img_nchw, grid, gout_nchw))
+    del img_nchw, gout_nchw
+    k2b = bwd_res["k2_backward"] = {"dense": k2_bwd_turns(img, grid, gout_b)}
+    k2b["dense"]["tiles_staged"] = float(shared_bwd_windows(grid, h, w, 23)[..., 5].float().mean())
+    # ATen on the channel-last tensors themselves (NCHW views), beside its NCHW time
+    k2b["dense"]["aten_channel_last"] = aten_grid_bwd_ms(img.permute(0, 3, 1, 2), grid,
+                                                         gout_b.permute(0, 3, 1, 2))
     texel_b, grid_b, out_b = 4 * f * h * w * 23, 8 * f * p, 4 * f * p * 23
     b_fwd = bound(card_name, texel_b + grid_b + out_b, f * p * (16 + 8 * 23))
-    b_bwd = bound(card_name, texel_b + 2 * grid_b + out_b, f * p * (16 + 12 * 23))
+    b_bwd = k2_bwd_bound(card_name, img, grid, gout_b)
     rows.append({"name": f"grid_sample batch mode {f}x{h}x{w} C=23", "route": "cuda",
                  "source": K2_SOURCE, "replaces": K2_REPLACES,
                  "launches": run_launches["grid_sample"], "max_abs_err": errs["b_fwd"],
                  **fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1]})
-    rows.append({"name": f"grid_sample_bwd batch mode {f}x{h}x{w} C=23, grid only "
-                         f"(launched by an LVD step with pxl_vid)",
-                 "route": "cuda", "source": BWD_SOURCE, "replaces": K2_BWD_REPLACES,
-                 "launches": run_launches["grid_sample_bwd"], "max_abs_err": errs["b_bwd"],
-                 **bwd, "bound_ms": b_bwd[0], "bound_by": b_bwd[1]})
-    del img, grid, out, g_grid, grid_p, w_out, w_grid, img_nchw, gout_nchw, gout_pc, gout_b
+    k2_row = {"name": f"grid_sample_bwd batch mode {f}x{h}x{w} C=23, grid only "
+                      f"(launched by an LVD step with pxl_vid)",
+              "route": "cuda", "source": BWD_SOURCE, "replaces": K2_BWD_REPLACES,
+              "launches": run_launches["grid_sample_bwd"], "max_abs_err": errs["b_bwd"],
+              **bwd, "bound_ms": b_bwd[0], "bound_by": b_bwd[1]}
+    rows.append(k2_row)
+    del img, grid, out, g_grid, grid_p, w_out, w_grid, gout_pc, gout_b
+    torch.cuda.empty_cache()
+
+    # K2 backward on the inputs the pxl_vid step handed it
+    s_img, s_grid, s_tp, s_gout, st = k2_step_inputs
+    st["tiles_staged"] = float(shared_bwd_windows(s_grid, *s_img.shape[1:])[..., 5].float().mean())
+    log(f"K2 backward on the pxl_vid step's own inputs: img {tuple(s_img.shape)}, grid "
+        f"{tuple(s_grid.shape)}, tp_sz {s_tp}; grad_out {st['dtype']} strides {st['stride']} "
+        f"({'contiguous' if st['contiguous'] else 'not contiguous'}), {st['zero_share']:.4g} of "
+        f"it exactly 0, channels not 0 everywhere {st['live_channels']}; "
+        f"{st['tiles_staged']:.4g} of the tiles' texture windows staged")
+    s_in = s_gout.float().contiguous()  # as the autograd function hands it to the wrapper
+    g_img, g_grid = grid_sample_bwd_cuda(s_img, s_grid, s_in, s_tp, True)
+    _, (w_img, w_grid) = plain_grads(lambda i, g: grid_sample_ctx_plain(i, g, s_tp),
+                                     (s_img, s_grid), (True, True), s_gout)
+    torch.cuda.synchronize()
+    errs["b_bwd"] = max(errs["b_bwd"], rel(g_grid, w_grid, "grad_grid, the pxl_vid step's inputs"),
+                        rel(g_img, w_img, "grad_img, the pxl_vid step's inputs"))
+    del g_img, g_grid, w_img, w_grid
+    b_step = k2_bwd_bound(card_name, s_img, s_grid, s_gout)
+    k2b["step_inputs"] = dict(
+        grad_out=st, bound_ms=b_step[0],
+        ms=cuda_time(lambda: grid_sample_bwd_cuda(s_img, s_grid, s_in, s_tp, False), 10),
+        **k2_bwd_turns(s_img, s_grid, s_gout, s_tp))
+    k2_row["max_abs_err"] = errs["b_bwd"]
+    k2_row["turns"] = {k: {"first": v["first"], "new": v["new"]} for k, v in k2b.items()}
+    del s_img, s_grid, s_gout, s_in, k2_step_inputs
     torch.cuda.empty_cache()
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
             f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
             f"library {r['library_ms']:.4f} ms")
+    d, t = k2b["dense"], k2b["step_inputs"]
+    log(f"K2 backward, grid only, in turns first design, tiles, tiles, first design (ms, as the "
+        f"autograd function runs each): dense {d['first'][0]:.4f} / {d['new'][0]:.4f} / "
+        f"{d['new'][1]:.4f} / {d['first'][1]:.4f} ({d['tiles_staged']:.4g} of the windows staged; "
+        f"ATen NCHW {k2_row['library_ms']:.4f}, ATen on the channel-last views "
+        f"{d['aten_channel_last']:.4f}); the pxl_vid step's inputs {t['first'][0]:.4f} / "
+        f"{t['new'][0]:.4f} / {t['new'][1]:.4f} / {t['first'][1]:.4f} (bound on these inputs "
+        f"{t['bound_ms']:.4f})")
     return rows, bwd_res
+
+
+def aten_grid_bwd_ms(img, grid, gout, reps=10):
+    """ATen's grid_sampler_2d_backward, grid gradient only, on (N, C, H, W)
+    tensors (bilinear, zero padding, align_corners=False)."""
+    import torch
+
+    return cuda_time(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gout, img, grid, 0, 0, False, [False, True]), reps)
+
+
+def k2_bwd_bound(card_name, img, grid, gout):
+    """The K2 backward's bound (grid gradient only) on these inputs: grad_out,
+    the grid and grad_grid once, and of the texture the channels that some
+    nonzero output gradient reads (a texture row's channel whose output
+    gradient is 0 everywhere needs no byte); 16 operations a pixel for its
+    taps and 12 a value with a nonzero output gradient."""
+    f, h, w, c = img.shape
+    rows = grid.shape[0]
+    live = (gout != 0).reshape(f, rows // f, -1, c).any(2).any(1)  # (F, C)
+    nbytes = 4 * (h * w * int(live.sum()) + 4 * grid[..., 0].numel() + gout.numel())
+    return bound(card_name, nbytes, 16 * grid[..., 0].numel() + 12 * int((gout != 0).sum()))
+
+
+def k2_bwd_turns(img, grid, gout, tp=1, reps=10):
+    """The K2 backward, grid only, as its autograd function runs it (grad_out
+    made contiguous float32, then the wrapper), in its first design and the
+    tile kernel, in turns: first, new, new, first."""
+    from waldo_tpu_torch.ops.kernels import grid_sample_bwd_cuda
+
+    new = lambda: grid_sample_bwd_cuda(img, grid, gout.float().contiguous(), tp, False)
+    old = lambda: shared_bwd_first(img, grid, gout.float().contiguous(), tp, False)
+    out = {"first": [], "new": []}
+    for k, fn in (("first", old), ("new", new), ("new", new), ("first", old)):
+        out[k].append(cuda_time(fn, reps))
+    return out
+
+
+def k2_bwd_ragged_checks(dev, rng, rel, plain_grads):
+    """The K2 backward at small ragged shapes against the plain autograd:
+    runs of pixels that end inside a warp, odd widths, tp_sz > 1, channel
+    counts that take one, an even and several chunks of the kernel, and a
+    grad_out whose first float is not 16-byte aligned (the kernel stages it
+    by scalar loads then), whose grad_grid must equal the aligned one's."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain
+    from waldo_tpu_torch.ops.kernels import grid_sample_bwd_cuda
+
+    err = 0.0
+    for f, h, w, c, tp, ho, wo in ((3, 31, 45, 7, 2, 19, 70), (2, 37, 53, 37, 3, 29, 61),
+                                   (2, 24, 40, 23, 2, 25, 41), (2, 20, 33, 16, 1, 17, 35),
+                                   (1, 9, 11, 1, 4, 13, 7), (2, 40, 24, 32, 2, 33, 31)):
+        img, grid = k2_inputs(rng, f, h, w, c, tp, ho, wo, dev)
+        gout = torch.randn(f * tp, ho, wo, c, device=dev)
+        shifted = torch.empty(gout.numel() + 1, device=dev)[1:].view(gout.shape)
+        shifted.copy_(gout)
+        g_img, g_grid = grid_sample_bwd_cuda(img, grid, gout, tp, True)
+        _, g_grid_s = grid_sample_bwd_cuda(img, grid, shifted, tp, False)
+        _, (w_img, w_grid) = plain_grads(lambda i, g: grid_sample_ctx_plain(i, g, tp),
+                                         (img, grid), (True, True), gout)
+        torch.cuda.synchronize()
+        label = f"K2 backward {f}x{h}x{w} C={c} tp_sz {tp} -> {ho}x{wo}"
+        err = max(err, rel(g_grid, w_grid, f"{label}: grad_grid"),
+                  rel(g_img, w_img, f"{label}: grad_img"))
+        check(torch.equal(g_grid, g_grid_s), f"{label}: grad_grid differs on a grad_out that is "
+                                             f"not 16-byte aligned")
+    return err
 
 
 def phase_train(dev, card_name, profile_dir=None):
@@ -1547,7 +1781,7 @@ def phase_train(dev, card_name, profile_dir=None):
         losses = list(m.vid_object_extractor_losses)
         m.vid_object_extractor_losses = losses + ["pxl_vid"]
         reset_launches()
-        px = tr.step(mode, batch, 0)
+        px, k2_step_inputs = capture_k2_bwd_inputs(tr, mode, batch)
         torch.cuda.synchronize()
         px_launches, _ = read_launches()
         m.vid_object_extractor_losses = losses
@@ -1564,7 +1798,7 @@ def phase_train(dev, card_name, profile_dir=None):
     # each kernel's launches from the run; K2's backward's from the pxl_vid step
     rows, bwd_res = phase_train_kernels(
         dev, card_name, dict(run_launches, grid_sample_bwd=px_launches["grid_sample_bwd"]),
-        step_inputs)
+        step_inputs, k2_step_inputs)
 
     # a small float32 step on the card against the same step on the CPU, on
     # a training clip drawn from a seeded stream (the same in every process)
@@ -1602,7 +1836,7 @@ def phase_train(dev, card_name, profile_dir=None):
             "launches_pxl_vid_step": px_launches,
             "small_step_loss_err": e_loss, "small_step_grad_tol_ratio": ratio,
             "scatter_inversion_diff_share": share, "scatter_inversion_err": e_inv,
-            "k2pc_backward": bwd_res, "profile": prof}, rows
+            "backwards": bwd_res, "profile": prof}, rows
 
 
 
@@ -1626,7 +1860,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name, card_line = phase_device()
-    build_s, bwd_sass = phase_build()
+    build_s, bwd_sass, resources = phase_build()
     errs, per_channel = phase_kernels(dev)
     main_res, k1_seen = phase_main(dev, args.iters, args.profile)
     mat_res = phase_mat(dev, args.profile)
@@ -1641,7 +1875,8 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(jsonable({"card": card_line, "build_s": build_s,
-                                "bwd_sass_atomics": bwd_sass, "per_channel": per_channel,
+                                "bwd_sass_atomics": bwd_sass, "ptxas": resources,
+                                "per_channel": per_channel,
                                 "main": main_res, "mat": mat_res, "train": train_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)

@@ -26,13 +26,23 @@
 // point, the output gradient and four texels and write the grid gradient,
 // a few flop each; grad_img adds four tap terms per sample, summed where
 // they meet.
-// Design (shared mode), as the forward's: a block takes 128 output pixels of
-// one row, computes each pixel's taps once into shared memory, then walks
-// the (pixel, channel) values channel-fastest, so its grad_out reads are one
-// contiguous span and a warp's texel reads (and grad_img's atomics) hit
-// neighbouring channels of neighbouring texels; each value's two grid-
-// gradient terms meet their pixel's in shared memory (no atomics), summed by
-// two threads a pixel (one thread a pixel left half the block idle).
+// Design (shared mode): a block takes a 16 x 16 tile of output pixels, a
+// thread a pixel. Each thread computes its pixel's taps once; the block
+// stages the tile's grad_out (16 rows of 16 x C contiguous floats, by
+// 16-byte async copies where aligned) and the texture window its taps
+// reach (the bounding box of the valid taps, one contiguous span of texels
+// a texture row, by 4-byte async copies) in shared memory, and after one
+// block barrier each thread walks its pixel's C channels from there, the
+// grid-gradient sums in registers: a warp's reads of one tap and channel
+// fall 1 texel (C floats, odd) apart, on distinct banks, and no term leaves
+// the thread. A tile whose window exceeds kWinCap floats (a strong shrink,
+// scattered taps) reads its texels straight from device memory instead.
+// Designs that kept channel-last texels coalesced across lanes and summed
+// a pixel's channel terms across lanes (the block-wide walk of the first
+// design, kept as yardstick/grid_sample_shared_bwd_pr4.cu; a warp a run of
+// 32 pixels; 8 lanes a pixel) were slower than ATen's NCHW backward on the
+// H100 (PERF.md): their per-value index work, term stores and reductions
+// cost more issue slots than the texel loads they coalesced.
 // Design (per-channel mode): a block takes one plane (see the kernel), so
 // that a plane's grad_img can be summed in shared memory and stored once:
 // 250 MB written at the training shape, where device atomics into a
@@ -47,13 +57,23 @@
 // shared memory and by atomics come in an order that changes from run to
 // run.
 
+#include <cuda_pipeline_primitives.h>
+
+#include <climits>
+
 #include "bilinear.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBwPix = 128;  // shared mode: output pixels per block
-constexpr int kMaxC = 32;    // channels a block stages at a time
+// shared mode: a block of kTile x kTile threads takes as many output
+// pixels, stages at most kMaxC channels at a time and a texture window of
+// at most kWinCap floats (48 KB)
+constexpr int kTile = 16, kTileThreads = kTile * kTile;
+constexpr int kMaxC = 32;
+constexpr int kWinCap = 12 * 1024;
+// blocks an SM holds at C = 23 (72 KB of shared memory each): registers
+// need not be held under what that leaves
+constexpr int kTileBlocks = 3;
 // per-channel mode: a block of kPlaneThreads takes one plane; a plane of at
 // most kPlaneCap texels (224 KB) accumulates its grad_img in shared memory
 constexpr int kPlaneThreads = 1024, kBatch = 4;
@@ -88,75 +108,166 @@ __device__ __forceinline__ void scatter_taps(float* base, int W, int stride, con
   if (ok.y1 && ok.x1) atomicAdd(base + (size_t)(y1 * W + x1) * stride, t.tx * t.ty * g);
 }
 
-// Shared grid: row n = blockIdx.y, pixels [p0, p0 + 128) of it. The taps
-// of each pixel go to shared memory first; then, 32 channels at a time, the
-// block walks its (pixel, channel) values channel-fastest, each thread
-// leaving a value's two grid-gradient terms in shared memory, and threads
-// 2q and 2q + 1 sum pixel q's even and odd channels' terms, met by one
-// shuffle at the end. In-row indices are 32-bit (the wrapper bounds
-// Ho*Wo*C and H*W*C). kImg: grad_img is asked for (its atomics compiled
-// out of the grid-only instantiation the training path runs).
+// grad_out of channels [c0, c0 + cc) of npx output pixels from go (the
+// first pixel, C channels a pixel) into s[q * cw + c] (cw = cc but for the
+// last of several chunks). Where that is the pixels' whole span (cc == C)
+// and go is 16-byte aligned, by 16-byte async copies and a scalar tail;
+// else by scalar loads. The caller commits and waits for the copies.
+__device__ __forceinline__ void stage_grad_out(float* s, const float* __restrict__ go, int npx,
+                                               int C, int c0, int cc, int cw, int lane) {
+  const int count = npx * cc;
+  if (cc == C && (reinterpret_cast<size_t>(go) & 15) == 0) {
+    const int nv = count >> 2;
+    for (int i = lane; i < nv; i += 32) __pipeline_memcpy_async(s + 4 * i, go + 4 * i, 16);
+    for (int i = 4 * nv + lane; i < count; i += 32) s[i] = go[i];
+  } else {
+    for (int k = lane; k < count; k += 32) {
+      const int q = k / cc;
+      s[q * cw + k - q * cc] = go[q * C + c0 + k - q * cc];
+    }
+  }
+}
+
+// One pixel's grid-gradient sums over channels [0, cc): its taps' texel c
+// at src[base + c] (y0,x0), src[base + xs + c] (y0,x1), src[base + rs + c]
+// (y1,x0), src[base + rs + xs + c] (y1,x1), each read only where its bit of
+// ok is set, the output gradient at g[c]. With u = g (v1 - v0) and so on,
+// sx0 + ty (sx1 - sx0) and sy0 + tx (sy1 - sy0) are the two derivatives.
+// kImg: g times each tap's weight also goes into grad_img at gi[c], gi[gxs
+// + c], gi[grs + c], gi[grs + gxs + c] by device atomics.
 template <bool kImg>
-__global__ void __launch_bounds__(kThreads) grid_sample_shared_bwd_kernel(
+__device__ __forceinline__ void pixel_sums(const float* src, int base, int xs, int rs, int ok,
+                                           const float* __restrict__ g, int cc, float* gi,
+                                           int gxs, int grs, const Taps& t, float& sx0,
+                                           float& sx1, float& sy0, float& sy1) {
+  const bool b0 = ok & 1, b1 = ok & 2, b2 = ok & 4, b3 = ok & 8;
+  // an unread tap's pointer stays at src, so that no address leaves the data
+  const float* p00 = src + (b0 ? base : 0);
+  const float* p01 = src + (b1 ? base + xs : 0);
+  const float* p10 = src + (b2 ? base + rs : 0);
+  const float* p11 = src + (b3 ? base + rs + xs : 0);
+#pragma unroll 4
+  for (int c = 0; c < cc; ++c) {
+    const float gc = g[c];
+    const float v0 = b0 ? p00[c] : 0.f, v1 = b1 ? p01[c] : 0.f;
+    const float v2 = b2 ? p10[c] : 0.f, v3 = b3 ? p11[c] : 0.f;
+    sx0 += gc * (v1 - v0);
+    sx1 += gc * (v3 - v2);
+    sy0 += gc * (v2 - v0);
+    sy1 += gc * (v3 - v1);
+    if (kImg && gc != 0.f) {
+      const float wx0 = 1.f - t.tx, wy0 = 1.f - t.ty;
+      if (b0) atomicAdd(gi + c, wx0 * wy0 * gc);
+      if (b1) atomicAdd(gi + gxs + c, t.tx * wy0 * gc);
+      if (b2) atomicAdd(gi + grs + c, wx0 * t.ty * gc);
+      if (b3) atomicAdd(gi + grs + gxs + c, t.tx * t.ty * gc);
+    }
+  }
+}
+
+// Shared grid: block (x, n) takes tile x (row-major over the output's
+// kTile x kTile tiles) of grid row n, thread (r, col) its pixel. In-row
+// indices are 32-bit (the wrapper bounds H*W*C and Ho*Wo*C; a texel index
+// is formed only for a pixel with a tap on the texture). kImg:
+// grad_img is asked for (zero-filled by the caller; its atomics are
+// compiled out of the grid-only instantiation the training path runs).
+template <bool kImg>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks) grid_sample_shared_bwd_kernel(
     const float* __restrict__ img, const float* __restrict__ grid,
-    const float* __restrict__ gout, float* __restrict__ ggrid, float* __restrict__ gimg,
-    int H, int W, int C, int P, int tp) {
-  __shared__ Taps s_t[kBwPix];
-  __shared__ float s_dx[kBwPix * (kMaxC + 1)], s_dy[kBwPix * (kMaxC + 1)];
-  const int n = blockIdx.y, p0 = blockIdx.x * kBwPix;
-  const int np = min(kBwPix, P - p0);
+    const float* __restrict__ gout, float* __restrict__ ggrid, float* __restrict__ gimg, int H,
+    int W, int C, int Ho, int Wo, int tp) {
+  extern __shared__ float4 s_dyn[];
+  __shared__ int4 s_box[kTileThreads / 32];
+  const int cw = min(C, kMaxC);
+  float* s_g = reinterpret_cast<float*>(s_dyn);  // kTileThreads x cw
+  float* s_w = s_g + kTileThreads * cw;          // the window, kWinCap floats
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles_x = (Wo + kTile - 1) / kTile;
+  const int oy0 = (blockIdx.x / tiles_x) * kTile, ox0 = (blockIdx.x % tiles_x) * kTile;
+  const int n = blockIdx.y, P = Ho * Wo;
+  const int oy = oy0 + threadIdx.x / kTile, ox = ox0 + threadIdx.x % kTile;
+  const bool live = oy < Ho && ox < Wo;
   const size_t tex_off = (size_t)(n / tp) * H * W * C;
   const float* tex = img + tex_off;
-  const float* go = gout + ((size_t)n * P + p0) * C;
-  if (threadIdx.x < np) {
-    const float2 gp = reinterpret_cast<const float2*>(grid)[(size_t)n * P + p0 + threadIdx.x];
-    s_t[threadIdx.x] = top_left_tap(gp.x, gp.y, H, W);
+  const int npx = min(kTile, Wo - ox0);
+  // warp w stages the grad_out of tile rows 2w and 2w + 1
+  auto stage_tile_grad_out = [&](int c0, int cc) {
+    for (int r = 2 * warp; r < 2 * warp + 2 && oy0 + r < Ho; ++r)
+      stage_grad_out(s_g + r * kTile * cw,
+                     gout + ((size_t)n * P + (size_t)(oy0 + r) * Wo + ox0) * C, npx, C, c0, cc,
+                     cw, lane);
+    __pipeline_commit();
+  };
+  stage_tile_grad_out(0, cw);  // on its way while the taps and window are found
+  Taps t = {0, 0, 0.f, 0.f};
+  int ok = 0;  // one bit a tap in tap order, set where the tap lies on the texture
+  if (live) {
+    const float2 gp = reinterpret_cast<const float2*>(grid)[(size_t)n * P + (size_t)oy * Wo + ox];
+    t = top_left_tap(gp.x, gp.y, H, W);
+    const bool vx0 = t.x0 >= 0 && t.x0 < W, vx1 = t.x0 + 1 >= 0 && t.x0 + 1 < W;
+    const bool vy0 = t.y0 >= 0 && t.y0 < H, vy1 = t.y0 + 1 >= 0 && t.y0 + 1 < H;
+    ok = (vy0 && vx0) | (vy0 && vx1) << 1 | (vy1 && vx0) << 2 | (vy1 && vx1) << 3;
   }
-  // this thread's half of pixel `mine`'s sums, over the channel chunks
-  const int mine = threadIdx.x >> 1, half = threadIdx.x & 1;
-  float ax = 0.f, ay = 0.f;
-  for (int c0 = 0; c0 < C; c0 += kMaxC) {
-    const int cc = min(kMaxC, C - c0);
-    const int S = cc | 1;  // odd row stride: thread q's reads hit 32 banks
-    __syncthreads();
-    const int count = np * cc;
-    const int dq = kThreads / cc, dc = kThreads - dq * cc;
-    int q = threadIdx.x / cc, c = threadIdx.x - q * cc;
-    for (int k = threadIdx.x; k < count; k += kThreads) {
-      const Taps t = s_t[q];
-      const Valid ok = valid_taps(t, H, W);
-      const int o00 = (t.y0 * W + t.x0) * C + c0 + c, o01 = o00 + C, o10 = o00 + W * C,
-                o11 = o10 + C;
-      const float g = go[q * C + c0 + c];
-      float v[4];
-      v[0] = (ok.y0 && ok.x0) ? tex[o00] : 0.f;
-      v[1] = (ok.y0 && ok.x1) ? tex[o01] : 0.f;
-      v[2] = (ok.y1 && ok.x0) ? tex[o10] : 0.f;
-      v[3] = (ok.y1 && ok.x1) ? tex[o11] : 0.f;
-      const float2 d = tap_derivative(t, v);
-      s_dx[q * S + c] = g * d.x;
-      s_dy[q * S + c] = g * d.y;
-      if (kImg && g != 0.f) scatter_taps(gimg + tex_off + c0 + c, W, C, t, ok, g);
-      q += dq;
-      c += dc;
-      if (c >= cc) {
-        c -= cc;
-        ++q;
-      }
+  // the window: the bounding box of the tile's valid taps
+  int xlo = ok ? max(t.x0, 0) : INT_MAX, xhi = ok ? min(t.x0 + 1, W - 1) : INT_MIN;
+  int ylo = ok ? max(t.y0, 0) : INT_MAX, yhi = ok ? min(t.y0 + 1, H - 1) : INT_MIN;
+  xlo = __reduce_min_sync(0xffffffffu, xlo);
+  xhi = __reduce_max_sync(0xffffffffu, xhi);
+  ylo = __reduce_min_sync(0xffffffffu, ylo);
+  yhi = __reduce_max_sync(0xffffffffu, yhi);
+  if (lane == 0) s_box[warp] = make_int4(xlo, xhi, ylo, yhi);
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kTileThreads / 32; ++w) {
+    const int4 b = s_box[w];
+    xlo = min(xlo, b.x);
+    xhi = max(xhi, b.y);
+    ylo = min(ylo, b.z);
+    yhi = max(yhi, b.w);
+  }
+  const int wx = xlo <= xhi ? xhi - xlo + 1 : 0, wy = xlo <= xhi ? yhi - ylo + 1 : 0;
+  float sx0 = 0.f, sx1 = 0.f, sy0 = 0.f, sy1 = 0.f;
+  for (int c0 = 0; c0 < C; c0 += cw) {
+    const int cc = min(cw, C - c0);
+    if (c0 > 0) {
+      __syncthreads();  // every thread is done with the previous channels
+      stage_tile_grad_out(c0, cc);
     }
-    __syncthreads();
-    if (mine < np) {
-      for (int j = half; j < cc; j += 2) {
-        ax += s_dx[mine * S + j];
-        ay += s_dy[mine * S + j];
+    // window rows padded to 16 mod 32 floats: the two rows of output pixels
+    // a warp holds then read distinct banks where the warp is 1:1
+    const int rowlen = wx * cc, rs = rowlen + ((16 - rowlen) & 31);
+    const bool staged = wy * rs <= kWinCap;
+    if (staged) {
+      for (int r = warp; r < wy; r += kTileThreads / 32) {
+        const float* src = tex + ((size_t)(ylo + r) * W + xlo) * C + c0;
+        float* dst = s_w + r * rs;
+        if (cc == C) {
+          for (int j = lane; j < rowlen; j += 32) __pipeline_memcpy_async(dst + j, src + j, 4);
+        } else {
+          for (int j = lane; j < rowlen; j += 32) {
+            const int q = j / cc;
+            dst[j] = src[q * C + j - q * cc];
+          }
+        }
       }
+      __pipeline_commit();
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (ok) {
+      float* gi = kImg ? gimg + tex_off + (ptrdiff_t)(t.y0 * W + t.x0) * C + c0 : nullptr;
+      if (staged)
+        pixel_sums<kImg>(s_w, (t.y0 - ylo) * rs + (t.x0 - xlo) * cc, cc, rs, ok,
+                         s_g + threadIdx.x * cw, cc, gi, C, W * C, t, sx0, sx1, sy0, sy1);
+      else
+        pixel_sums<kImg>(tex + c0, (t.y0 * W + t.x0) * C, C, W * C, ok, s_g + threadIdx.x * cw,
+                         cc, gi, C, W * C, t, sx0, sx1, sy0, sy1);
     }
   }
-  ax += __shfl_xor_sync(0xffffffffu, ax, 1);
-  ay += __shfl_xor_sync(0xffffffffu, ay, 1);
-  if (half == 0 && mine < np)
-    reinterpret_cast<float2*>(ggrid)[(size_t)n * P + p0 + mine] =
-        make_float2(ax * (W * 0.5f), ay * (H * 0.5f));
+  if (live)
+    reinterpret_cast<float2*>(ggrid)[(size_t)n * P + (size_t)oy * Wo + ox] =
+        make_float2((sx0 + t.ty * (sx1 - sx0)) * (W * 0.5f),
+                    (sy0 + t.tx * (sy1 - sy0)) * (H * 0.5f));
 }
 
 // Per-channel grids: block b takes plane b = n * C + l, its grid (Ho, Wo, 2)
@@ -265,15 +376,22 @@ extern "C" int waldo_grid_sample_bwd(const void* img, const void* boxes, const v
           (float*)ggrid, (float*)gimg, H, W, P);
     }
   } else {
-    const dim3 blocks((unsigned)((P + kBwPix - 1) / kBwPix), (unsigned)N);
+    const unsigned tiles = (unsigned)((Ho + kTile - 1) / kTile) * ((Wo + kTile - 1) / kTile);
+    const dim3 blocks(tiles, (unsigned)N);
+    const int smem = (kTileThreads * min(C, kMaxC) + kWinCap) * (int)sizeof(float);
+    const void* kernel = gimg != nullptr ? (const void*)grid_sample_shared_bwd_kernel<true>
+                                         : (const void*)grid_sample_shared_bwd_kernel<false>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
     if (gimg != nullptr)
-      grid_sample_shared_bwd_kernel<true><<<blocks, kThreads, 0, s>>>(
+      grid_sample_shared_bwd_kernel<true><<<blocks, kTileThreads, smem, s>>>(
           (const float*)img, (const float*)grid, (const float*)gout, (float*)ggrid,
-          (float*)gimg, H, W, C, P, tp);
+          (float*)gimg, H, W, C, Ho, Wo, tp);
     else
-      grid_sample_shared_bwd_kernel<false><<<blocks, kThreads, 0, s>>>(
-          (const float*)img, (const float*)grid, (const float*)gout, (float*)ggrid, nullptr,
-          H, W, C, P, tp);
+      grid_sample_shared_bwd_kernel<false><<<blocks, kTileThreads, smem, s>>>(
+          (const float*)img, (const float*)grid, (const float*)gout, (float*)ggrid, nullptr, H,
+          W, C, Ho, Wo, tp);
   }
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,9 @@ warp) has no backward. ``plane_boxes_plain`` is the plain version of the
 pre-pass that feeds the per-layer samples of the kernels, and
 ``tap_footprint_skips`` the kernels' exact test for a sample that is 0
 without reading a texel (the TPU kernels' sparsity skip); ``bwd_tap_routes``
-models where the per-channel backward kernel sums each tap term of grad_img.
+models where the per-channel backward kernel sums each tap term of grad_img,
+and ``shared_bwd_windows`` the texture windows the shared-grid backward
+kernel stages for its tiles of output pixels.
 The kernels and the plain versions compute in float32: the JAX signatures'
 ``precision`` has no counterpart here, since "fast" sampling only decides
 where the callers store bf16 maps.
@@ -77,6 +79,8 @@ class _GridSampleCuda(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         img, grid = ctx.saved_tensors
+        # no copy on the training step: the Warper's bf16 cast of the sampled
+        # frames hands grad back as a fresh contiguous float32 tensor
         g_img, g_grid = grid_sample_bwd_cuda(img, grid, grad.float().contiguous(), ctx.tp_sz,
                                              ctx.needs_input_grad[0])
         return g_img, g_grid if ctx.needs_input_grad[1] else None, None
@@ -117,17 +121,20 @@ def plane_boxes_plain(tex: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return planes, torch.stack([y0, y1, x0, x1], dim=-1).to(torch.int32)
 
 
+def _top_left(g: torch.Tensor, size: int) -> torch.Tensor:
+    """The kernels' top-left tap index along one axis of a normalized grid
+    coordinate, rounded step by step as csrc/bilinear.cuh's top_left_tap."""
+    i = (g.float() + 1.0) * (size * 0.5) - 0.5
+    return torch.floor(i.clamp(-2.0, size + 1.0)).long()
+
+
 def tap_footprint_skips(grids: torch.Tensor, boxes: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """The kernels' sparsity test, in plain PyTorch: grids (R, C, gh, gw, 2)
     sampling planes of size h x w whose nonzero boxes are boxes (R, C, 4).
     True where the 2x2 bilinear footprint of a (row, layer, pixel) sample
     misses its plane's box, so that the sample is exactly 0 and the kernels
     read no texel for it (csrc/bilinear.cuh: top_left_tap, misses_box)."""
-    def top_left(g, size):
-        i = (g + 1.0) * (size * 0.5) - 0.5
-        return torch.floor(i.clamp(-2.0, size + 1.0)).to(torch.int32)
-
-    x0, y0 = top_left(grids[..., 0].float(), w), top_left(grids[..., 1].float(), h)
+    x0, y0 = _top_left(grids[..., 0], w), _top_left(grids[..., 1], h)
     b = boxes[:, :, None, None, :]
     return (x0 + 1 < b[..., 2]) | (x0 > b[..., 3]) | (y0 + 1 < b[..., 0]) | (y0 > b[..., 1])
 
@@ -148,16 +155,56 @@ def bwd_tap_routes(grids: torch.Tensor, grad_out: torch.Tensor, h: int, w: int,
     (y0,x0) (y0,x1) (y1,x0) (y1,x1): 0 the tap adds nothing (off the plane,
     or the output gradient is 0), 1 it adds into the window, 2 it adds
     straight into grad_img (csrc/grid_sample_bwd.cu, per-channel mode)."""
-    def top_left(g, size):
-        i = (g + 1.0) * (size * 0.5) - 0.5
-        return torch.floor(i.clamp(-2.0, size + 1.0)).long()
-
-    x0, y0 = top_left(grids[..., 0].float(), w), top_left(grids[..., 1].float(), h)
+    x0, y0 = _top_left(grids[..., 0], w), _top_left(grids[..., 1], h)
     xs = torch.stack([x0, x0 + 1, x0, x0 + 1], dim=-1)
     ys = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
     live = ((grad_out.permute(0, 3, 1, 2) != 0)[..., None]
             & (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h))
     return (live.to(torch.int8) * (1 if h * w <= cap else 2)).to(torch.int8)
+
+
+# the shared-grid backward kernel (csrc/grid_sample_bwd.cu, shared mode): a
+# block takes a BWD_TILE x BWD_TILE tile of output pixels and stages, for
+# BWD_MAX_C channels at a time, the texture window its taps reach where the
+# window holds at most BWD_WINDOW_CAP floats
+BWD_TILE = 16
+BWD_MAX_C = 32
+BWD_WINDOW_CAP = 12 * 1024
+
+
+def shared_bwd_windows(grid: torch.Tensor, h: int, w: int, c: int) -> torch.Tensor:
+    """The shared-grid backward kernel's texture windows, in plain PyTorch:
+    grid (R, Ho, Wo, 2) sampling textures of h x w texels and c channels.
+    Returns (R, ceil(Ho / BWD_TILE), ceil(Wo / BWD_TILE), 6) int64, for each
+    tile: the inclusive box (x_lo, x_hi, y_lo, y_hi) of the texels its
+    valid taps read ((w, -1, h, -1) where none does), the window's row
+    stride in floats for its first min(c, BWD_MAX_C) channels (its width
+    times that, rounded up to 16 mod 32), and 1 where the window, rows of
+    that stride, fits BWD_WINDOW_CAP floats and is staged in shared memory,
+    else 0 (the tile reads its texels from device memory)."""
+    r, ho, wo = grid.shape[:3]
+    x0, y0 = _top_left(grid[..., 0], w), _top_left(grid[..., 1], h)
+    on_x = ((x0 >= 0) & (x0 < w)) | ((x0 + 1 >= 0) & (x0 + 1 < w))
+    on_y = ((y0 >= 0) & (y0 < h)) | ((y0 + 1 >= 0) & (y0 + 1 < h))
+    ok = on_x & on_y  # some tap of the pixel lies on the texture
+    big = 1 << 40
+    lo_hi = torch.stack([torch.where(ok, x0.clamp(min=0), big),
+                         torch.where(ok, -(x0 + 1).clamp(max=w - 1), big),
+                         torch.where(ok, y0.clamp(min=0), big),
+                         torch.where(ok, -(y0 + 1).clamp(max=h - 1), big)], dim=-1)
+    t = BWD_TILE
+    ty, tx = -(-ho // t), -(-wo // t)
+    lo_hi = torch.nn.functional.pad(lo_hi, (0, 0, 0, tx * t - wo, 0, ty * t - ho), value=big)
+    box = lo_hi.reshape(r, ty, t, tx, t, 4).amin(dim=(2, 4))
+    empty = box[..., 0] == big
+    box = torch.where(empty[..., None], torch.tensor([w, 1, h, 1], device=grid.device), box)
+    box = box * torch.tensor([1, -1, 1, -1], device=grid.device)
+    cw = min(c, BWD_MAX_C)
+    row = (box[..., 1] - box[..., 0] + 1).clamp(min=0) * cw
+    stride = row + (16 - row) % 32
+    rows = (box[..., 3] - box[..., 2] + 1).clamp(min=0)
+    return torch.cat([box, stride[..., None], (rows * stride <= BWD_WINDOW_CAP).long()[..., None]],
+                     dim=-1)
 
 
 def grid_sample_multigrid_plain(img: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:

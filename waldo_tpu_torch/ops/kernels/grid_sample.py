@@ -110,7 +110,10 @@ def grid_sample_bwd_cuda(img: torch.Tensor, grid: torch.Tensor, grad_out: torch.
                          ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Backward of ``grid_sample_cuda`` with a shared grid, float32 only:
     img (F, H, W, C), grid (F*tp_sz, Ho, Wo, 2), grad_out (F*tp_sz, Ho, Wo,
-    C). Returns (grad_img (F, H, W, C) or None unless need_img, grad_grid)."""
+    C), all contiguous (the training step hands grad_out over so: the
+    Warper's bf16 cast of the sampled frames gives it back as a fresh
+    float32 tensor). Returns (grad_img (F, H, W, C) or None unless need_img,
+    grad_grid)."""
     _check(img, grid, tp_sz, (torch.float32,))
     if grid.dim() != 4 or grad_out.shape != grid.shape[:3] + img.shape[3:]:
         raise ValueError(f"grad_out {tuple(grad_out.shape)} does not fit grid "
