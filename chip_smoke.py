@@ -50,11 +50,30 @@ Phases, in order; any failure exits non-zero:
      other passes; each backward timed in turns against its earlier design
      (csrc/yardstick/), on those inputs and on the inputs a training step
      hands it (K2's from a step with pxl_vid; with their layout and share of
-     zero output gradient); a small float32 step, card vs CPU.
-With --profile DIR, phases 4, 5 and 7 also trace one predict, one MAT clip
-and one training step with torch.profiler and write the device time per
-span and per kernel, and the device's idle share, to
-DIR/profile{,_mat,_train}.json and .txt.
+     zero output gradient); a small float32 step, card vs CPU;
+  8. FLP training (scripts/cityscapes/train_flp.sh): its flags parsed, on
+     synthetic clips, at full width (B=4, 14 frames of 128x256, embed 512,
+     16 objects), its frozen LVD teacher restored from phase 7's run;
+     Trainer.run (no kernel launch: the path has none; finite loss, no
+     skipped step, every FLP parameter moved and no LVD one, the latest
+     slots restore equal), ms per step, clips/s and peak memory on a fixed
+     batch, a small float32 step card vs CPU;
+  9. WIF training (scripts/cityscapes/train_wif.sh): the same at its full
+     width (B=8, 5 frames loaded at 512x1024, UNet depth 6, embed 512), (a)
+     without LPIPS weights (the warning; L1 only) and (b) with seeded random
+     VGG16 LPIPS weights; launch counts (the decode's K2' and K2 batch-mode
+     sample and the pre-pass once a step, no backward: the decode runs
+     under no_grad); the two samples against their plain versions on the
+     inputs one step hands them, timed beside their bounds and
+     F.grid_sample.
+Phases 7-9 also time the training loop's iterations (a batch from the
+prefetching loader, its copy, one step) with the script's loader workers
+and with one, beside the host's time to make one batch's clips.
+With --profile DIR, phases 4, 5, 7, 8 and 9 also trace one predict, one MAT
+clip, one training step of each net and one loop iteration of each with
+torch.profiler and write the device time per span and per kernel, and the
+device's idle share, to DIR/profile{,_mat,_train,_flp,_wif_*,*_iteration}
+.json and .txt.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -64,6 +83,7 @@ import argparse
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -94,8 +114,11 @@ K2PC_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:219"
 ROWS_BWD_SOURCE = "yardstick/grid_sample_bwd_rows.cu"
 SHARED_BWD_FIRST_SOURCE = "yardstick/grid_sample_shared_bwd_pr4.cu"
 TRAIN_SCRIPT = "scripts/cityscapes/train_lvd.sh"
-TRAIN_ITERS = 3  # Trainer.run iterations of the training phase
+FLP_SCRIPT = "scripts/cityscapes/train_flp.sh"
+WIF_SCRIPT = "scripts/cityscapes/train_wif.sh"
+TRAIN_ITERS = 3  # Trainer.run iterations of each training phase
 TRAIN_TIMED = 5  # timed steps on one fixed batch
+LOADER_ITERS = 3  # timed loader iterations (batch, copy, step) per worker count
 # the pre-pass computes on the card what _skip_flags computes for the TPU
 # kernels (and the permute copy K1's wrapper made before)
 PRE_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:555"
@@ -1059,14 +1082,16 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, launches, k3_launche
 
 
 def train_lvd_flags(path=TRAIN_SCRIPT):
-    """The flags scripts/cityscapes/train_lvd.sh hands the training CLI."""
+    """The flags a training script (scripts/cityscapes/train_lvd.sh by
+    default) hands the training CLI, without its pass-through arguments."""
     import shlex
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), path)) as fh:
         text = fh.read().replace("\\\n", " ")
     for line in text.splitlines():
         if "cli.train" in line:
-            return [a for a in shlex.split(line.split("cli.train", 1)[1]) if a != "$@"]
+            return [a for a in shlex.split(line.split("cli.train", 1)[1])
+                    if a not in ("$@", "${@:2}")]
     raise RuntimeError(f"no training command in {path}")
 
 
@@ -1107,14 +1132,6 @@ def scatter_inversion_check(dev, rows=64, seed=5):
     err = (got - want).abs().amax(dim=-1)
     off = err > 1e-4
     return float(off.float().mean()), float(err[~off].max())
-
-
-def flat_grads(syn):
-    """The LVD gradients by flax path, as numpy arrays."""
-    from waldo_tpu_torch.convert import to_jax
-    from waldo_tpu_torch.train.checkpoint import _flatten
-
-    return _flatten(to_jax(syn, grads=True)["pe"])
 
 
 def train_kernel_inputs(rng, f, h, w, c, dev):
@@ -1673,170 +1690,639 @@ def k2_bwd_ragged_checks(dev, rng, rel, plain_grads):
     return err
 
 
-def phase_train(dev, card_name, profile_dir=None):
+def phase_train(dev, card_name, root, profile_dir=None):
     """The LVD training path: train_lvd.sh's config on synthetic clips,
-    Trainer.run for TRAIN_ITERS iterations (launch counts, finite loss, no
-    skipped step, parameters moved, the "latest" slot restores equal), then
-    TRAIN_TIMED steps timed on one fixed batch, the samples' kernels against
-    their plain versions at the path's shapes, and a small float32 step on
-    the card against the same step on the CPU."""
-    import shutil
-
+    saving under ``root``, Trainer.run for TRAIN_ITERS iterations (launch
+    counts, finite loss, no skipped step, parameters moved, the "latest"
+    slot restores equal), then TRAIN_TIMED steps timed on one fixed batch,
+    the loader's iterations, the samples' kernels against their plain
+    versions at the path's shapes, and a small float32 step on the card
+    against the same step on the CPU. Returns the run's checkpoint dir too:
+    phases 8 and 9 restore their LVD teacher from it."""
     import torch
     from waldo_tpu_torch.config import parse_cli
     from waldo_tpu_torch.convert import to_jax
-    from waldo_tpu_torch.data import create_dataset
-    from waldo_tpu_torch.models import Synthesizer
     from waldo_tpu_torch.ops.kernels import reset_launches
     from waldo_tpu_torch.train import Trainer
     from waldo_tpu_torch.train.checkpoint import _flatten
 
     log(f"== 7. training path: LVD training ({TRAIN_SCRIPT}) on synthetic clips")
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
-    shutil.rmtree(root, ignore_errors=True)
     mode = "vid_object_extractor"
-    try:
-        cfg = parse_cli(train_lvd_flags() + ["--data.dataset", "synthetic", "--save_path", root,
-                                             "--datetime", "smoke"])
-        m = cfg.model
-        shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.width_size, m.embed_dim,
-                 m.num_obj, cfg.data.num_lyt, m.oe_depth, m.pe_depth)
-        log(f"config (B, T, H, W, embed, objects, layout classes, LVD depths): {shape}; "
-            f"load_dim {cfg.load_dim}, fast_inverse_warp {m.fast_inverse_warp}, sample_precision "
-            f"{m.sample_precision!r}, compute {cfg.compute_dtype}, ctx_mode {m.ctx_mode!r}, "
-            f"include_self {m.include_self}, pe_estimator_init_mode {m.pe_estimator_init_mode!r}, "
-            f"losses {m.vid_object_extractor_losses}, {m.optimizer} lr {m.lr} betas "
-            f"({m.beta1}, {m.beta2})")
-        check(shape == (8, 14, 128, 256, 512, 16, 20, 2, 2) and cfg.load_dim == 0
-              and not m.fast_inverse_warp and m.sample_precision == "fast"
-              and cfg.compute_dtype == "float32" and m.ctx_mode == "prev" and m.include_self
-              and m.pe_estimator_init_mode == "" and m.optimizer == "adam",
-              "the parsed train_lvd.sh config is not the expected one")
-        t0 = time.perf_counter()
-        tr = Trainer(cfg, device=dev)
-        before = [p.detach().clone() for p in tr.syn.lvd.parameters()]
-        log(f"trainer ready in {time.perf_counter() - t0:.1f} s "
-            f"({sum(p.numel() for p in before)} LVD parameters)")
+    cfg = parse_cli(train_lvd_flags() + ["--data.dataset", "synthetic", "--save_path", root,
+                                         "--datetime", "smoke"])
+    m = cfg.model
+    shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.width_size, m.embed_dim,
+             m.num_obj, cfg.data.num_lyt, m.oe_depth, m.pe_depth)
+    log(f"config (B, T, H, W, embed, objects, layout classes, LVD depths): {shape}; "
+        f"load_dim {cfg.load_dim}, fast_inverse_warp {m.fast_inverse_warp}, sample_precision "
+        f"{m.sample_precision!r}, compute {cfg.compute_dtype}, ctx_mode {m.ctx_mode!r}, "
+        f"include_self {m.include_self}, pe_estimator_init_mode {m.pe_estimator_init_mode!r}, "
+        f"losses {m.vid_object_extractor_losses}, {m.optimizer} lr {m.lr} betas "
+        f"({m.beta1}, {m.beta2})")
+    check(shape == (8, 14, 128, 256, 512, 16, 20, 2, 2) and cfg.load_dim == 0
+          and not m.fast_inverse_warp and m.sample_precision == "fast"
+          and cfg.compute_dtype == "float32" and m.ctx_mode == "prev" and m.include_self
+          and m.pe_estimator_init_mode == "" and m.optimizer == "adam",
+          "the parsed train_lvd.sh config is not the expected one")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=dev)
+    before = [p.detach().clone() for p in tr.syn.lvd.parameters()]
+    log(f"trainer ready in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in before)} LVD parameters)")
 
-        reset_launches()
-        t0 = time.perf_counter()
-        tr.run(num_iter=TRAIN_ITERS)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        run_launches, run_keys = read_launches()
-        st = tr.states["pe"]
-        log(f"Trainer.run({TRAIN_ITERS}): {run_s:.1f} s (synthetic clips made on the host "
-            f"included); launches {run_launches} by key {run_keys}; step count {int(st.count)}, "
-            f"nancount {int(st.nancount)}")
-        n = TRAIN_ITERS
-        # train_lvd.sh's four losses read no output of the context fusion
-        # (the fused frames enter only metrics), so autograd never asks for
-        # that sample's backward: K2's backward runs in the pxl_vid step below
-        check(run_launches == {"warp_alpha_ctx": 0, "grid_sample": n,
-                               "grid_sample_per_channel": n, "grid_sample_bwd": 0,
-                               "grid_sample_per_channel_bwd": n, "bias_act": 0, "plane_boxes": n},
-              f"expected one launch of K2' forward and backward, of K2's batch-mode forward and "
-              f"of the pre-pass per step, got {run_launches}")
-        check(run_keys["grid_sample"] == {112: n}
-              and run_keys["grid_sample_per_channel"] == {112: n},
-              f"unexpected sample shapes {run_keys}")
-        check(int(st.nancount) == 0 and int(st.count) == n, "a step was skipped (non-finite loss)")
-        unmoved = [k for (k, p), b in zip(tr.syn.lvd.named_parameters(), before)
-                   if torch.equal(p, b)]
-        log(f"{len(before) - len(unmoved)} of {len(before)} LVD parameter tensors changed")
-        check(not unmoved, f"LVD parameters that did not change: {unmoved}")
-        check(tr.ckpt.exists("pe", "latest"), "no latest checkpoint was written")
-        now = _flatten(to_jax(tr.syn)["pe"])
-        back = _flatten(tr.ckpt.restore("pe", to_jax(tr.syn)["pe"], "latest", strict=True))
-        check(all(np.array_equal(now[k], back[k]) for k in now), "the latest slot restores unequal")
-        log(f"latest checkpoint restores equal ({len(now)} leaves)")
-        del before, now, back
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.run(num_iter=TRAIN_ITERS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches, run_keys = read_launches()
+    st = tr.states["pe"]
+    log(f"Trainer.run({TRAIN_ITERS}): {run_s:.1f} s (synthetic clips made on the host "
+        f"included); launches {run_launches} by key {run_keys}; step count {int(st.count)}, "
+        f"nancount {int(st.nancount)}")
+    n = TRAIN_ITERS
+    # train_lvd.sh's four losses read no output of the context fusion
+    # (the fused frames enter only metrics), so autograd never asks for
+    # that sample's backward: K2's backward runs in the pxl_vid step below
+    check(run_launches == {"warp_alpha_ctx": 0, "grid_sample": n,
+                           "grid_sample_per_channel": n, "grid_sample_bwd": 0,
+                           "grid_sample_per_channel_bwd": n, "bias_act": 0, "plane_boxes": n},
+          f"expected one launch of K2' forward and backward, of K2's batch-mode forward and "
+          f"of the pre-pass per step, got {run_launches}")
+    check(run_keys["grid_sample"] == {112: n}
+          and run_keys["grid_sample_per_channel"] == {112: n},
+          f"unexpected sample shapes {run_keys}")
+    check(int(st.nancount) == 0 and int(st.count) == n, "a step was skipped (non-finite loss)")
+    unmoved = [k for (k, p), b in zip(tr.syn.lvd.named_parameters(), before)
+               if torch.equal(p, b)]
+    log(f"{len(before) - len(unmoved)} of {len(before)} LVD parameter tensors changed")
+    check(not unmoved, f"LVD parameters that did not change: {unmoved}")
+    check(tr.ckpt.exists("pe", "latest"), "no latest checkpoint was written")
+    now = _flatten(to_jax(tr.syn)["pe"])
+    back = _flatten(tr.ckpt.restore("pe", to_jax(tr.syn)["pe"], "latest", strict=True))
+    check(all(np.array_equal(now[k], back[k]) for k in now), "the latest slot restores unequal")
+    log(f"latest checkpoint restores equal ({len(now)} leaves)")
+    del before, now, back
 
-        batch = tr._to_device(tr.train_loader.next())
-        for _ in range(2):
-            tr.step(mode, batch, 0)
-        torch.cuda.synchronize()
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        metrics = tr.step(mode, batch, 0)
-        torch.cuda.synchronize()
-        step_launches, _ = read_launches()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act", "grid_sample_bwd") else 1)
-                  for k, v in step_launches.items()), f"launches in one step: {step_launches}")
-        loss = float(metrics["loss"])
-        check(np.isfinite(loss) and all(bool(torch.isfinite(v)) for v in metrics.values())
-              and int(metrics["nancount"]) == 0, f"non-finite metrics {metrics}")
-        ms = cuda_time(lambda: tr.step(mode, batch, 0), TRAIN_TIMED, warmup=0)
-        clips = cfg.batch_size_vid / (ms / 1e3)
-        log(f"train step: {ms:.2f} ms over {TRAIN_TIMED} steps -> {clips:.3f} clips/s "
-            f"({cfg.batch_size_vid} clips of {cfg.data.vid_len} frames); peak memory "
-            f"{peak_gb:.2f} GB; loss {loss:.5f}; launches per step {step_launches}")
-        prof = (phase_profile(lambda: tr.step(mode, batch, 0), profile_dir, "_train")
-                if profile_dir else None)
-        step_inputs = capture_pc_bwd_inputs(tr, mode, batch)
+    batch, res = time_steps(tr, mode, "train", profile_dir)
+    step_launches = res["launches_per_step"]
+    check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act", "grid_sample_bwd") else 1)
+              for k, v in step_launches.items()), f"launches in one step: {step_launches}")
+    step_inputs = capture_pc_bwd_inputs(tr, mode, batch)
+    res["loader"] = loader_timing(tr, mode, res["ms_per_step"], profile_dir, "_train")
 
-        # pxl_vid, a loss of the mode that reads the fused frames, puts the
-        # context fusion's backward (K2 batch mode) on the step
-        losses = list(m.vid_object_extractor_losses)
-        m.vid_object_extractor_losses = losses + ["pxl_vid"]
-        reset_launches()
-        px, k2_step_inputs = capture_k2_bwd_inputs(tr, mode, batch)
-        torch.cuda.synchronize()
-        px_launches, _ = read_launches()
-        m.vid_object_extractor_losses = losses
-        log(f"one step with pxl_vid added to the losses: launches {px_launches}, loss "
-            f"{float(px['loss']):.5f}")
-        check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act") else 1)
-                  for k, v in px_launches.items()) and bool(torch.isfinite(px["loss"])),
-              f"launches in a step with pxl_vid: {px_launches}")
-        del tr, batch, metrics, px
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # pxl_vid, a loss of the mode that reads the fused frames, puts the
+    # context fusion's backward (K2 batch mode) on the step
+    losses = list(m.vid_object_extractor_losses)
+    m.vid_object_extractor_losses = losses + ["pxl_vid"]
+    reset_launches()
+    px, k2_step_inputs = capture_k2_bwd_inputs(tr, mode, batch)
+    torch.cuda.synchronize()
+    px_launches, _ = read_launches()
+    m.vid_object_extractor_losses = losses
+    log(f"one step with pxl_vid added to the losses: launches {px_launches}, loss "
+        f"{float(px['loss']):.5f}")
+    check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act") else 1)
+              for k, v in px_launches.items()) and bool(torch.isfinite(px["loss"])),
+          f"launches in a step with pxl_vid: {px_launches}")
+    lvd_dir = cfg.checkpoint_path
+    del tr, batch, px
+    torch.cuda.empty_cache()
 
     # each kernel's launches from the run; K2's backward's from the pxl_vid step
     rows, bwd_res = phase_train_kernels(
         dev, card_name, dict(run_launches, grid_sample_bwd=px_launches["grid_sample_bwd"]),
         step_inputs, k2_step_inputs)
 
-    # a small float32 step on the card against the same step on the CPU, on
-    # a training clip drawn from a seeded stream (the same in every process)
-    cfg_s = small_train_cfg()
-    ds = create_dataset(cfg_s, phase="train", rng=random.Random(3))
-    b_np = {k: v[None] for k, v in ds[0].items() if isinstance(v, np.ndarray)}
-    res = []
-    for d in (dev, "cpu"):  # the same seeded weights on both
-        syn = Synthesizer(cfg_s, device=d, seed=3)
-        s_loss, _ = syn.extract_object_loss({k: torch.from_numpy(v).to(d) for k, v in b_np.items()})
-        s_loss.backward()
-        res.append((float(s_loss.detach()), flat_grads(syn)))
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = res
-    # per leaf: 5e-3 of the leaf's largest gradient (the CPU tests' factor
-    # against JAX) plus 1e-5 of the largest of all leaves, since a leaf whose
-    # gradient sums many cancelling terms carries the whole step's rounding
-    # (other summation orders, the K2' backward's atomics) at that scale
-    top = max(float(np.abs(v).max()) for v in g_cpu.values())
-    ratio, leaf = max((float(np.abs(g_gpu[k] - g_cpu[k]).max())
-                       / (5e-3 * float(np.abs(g_cpu[k]).max()) + 1e-5 * top), k) for k in g_cpu)
-    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
-    log(f"small float32 train step, card vs CPU: loss {l_gpu:.6f} / {l_cpu:.6f} (relative "
-        f"{e_loss:.3g}, tol 1e-4); per-leaf gradients within {ratio:.3g} of their tolerance "
-        f"(5e-3 x max|CPU leaf| + 1e-5 x max|CPU grad| = {top:.3g}), the tightest {leaf}")
-    check(e_loss <= 1e-4 and ratio <= 1.0,
-          "the small train step on the card disagrees with the CPU")
+    res["small_step"] = small_step_check(dev, small_train_cfg(), "extract_object_loss", "pe",
+                                         "LVD")
     share, e_inv = scatter_inversion_check(dev)
     log(f"scatter inversion (64 object grids, 64x64 -> 128x256), card vs CPU on the same grids: "
         f"{share:.3g} of the pixels differ by more than 1e-4 (tol 1e-4: a displacement within "
         f"rounding of a half pixel), max|err| {e_inv:.3g} elsewhere (tol 1e-5)")
     check(share <= 1e-4 and e_inv <= 1e-5,
           "the scatter inversion on the card disagrees with the CPU")
-    return {"ms_per_step": ms, "clips_per_s": clips, "peak_gb": peak_gb, "loss": loss,
-            "run_seconds": run_s, "launches_run": run_launches, "launches_per_step": step_launches,
-            "launches_pxl_vid_step": px_launches,
-            "small_step_loss_err": e_loss, "small_step_grad_tol_ratio": ratio,
-            "scatter_inversion_diff_share": share, "scatter_inversion_err": e_inv,
-            "backwards": bwd_res, "profile": prof}, rows
+    res.update(run_seconds=run_s, launches_run=run_launches, launches_pxl_vid_step=px_launches,
+               scatter_inversion_diff_share=share, scatter_inversion_err=e_inv,
+               backwards=bwd_res)
+    return res, rows, lvd_dir
+
+
+# ---------------------------------------------------------------------------
+# FLP and WIF training (phases 8 and 9), and the loader
+# ---------------------------------------------------------------------------
+
+
+def loader_timing(tr, mode, step_ms, profile_dir=None, label=""):
+    """Trainer.run's loop body (a batch, its copy to the card, one optimizer
+    step) for LOADER_ITERS iterations after one warm-up, three ways: the
+    prefetching loader with the script's workers and with one, and batches
+    made in the consumer's thread, a batch's clips in order (a loader
+    without prefetch); and the host's time to make one batch's clips one by
+    one. Under --profile, one iteration of each way is traced (its idle
+    share)."""
+    import torch
+    from waldo_tpu_torch.data import DataLoader, InfiniteLoader, collate, create_dataset
+
+    cfg, b = tr.cfg, tr.cfg.batch_size_vid
+    ds = create_dataset(cfg, phase="train")
+    t0 = time.perf_counter()
+    collate([ds.make_clip(i, ds.clip_seed(i)) for i in range(b)])
+    res = {"clip_s_per_batch": time.perf_counter() - t0, "step_ms": step_ms}
+
+    def in_thread(ds):
+        k = 0
+        while True:
+            yield collate([ds[j % len(ds)] for j in range(k, k + b)])
+            k += b
+
+    for workers in (cfg.data.num_workers, 1, 0):
+        if workers:
+            loader = InfiniteLoader(DataLoader(create_dataset(cfg, phase="train"), b,
+                                               shuffle=True, seed=cfg.seed, num_workers=workers))
+            next_batch, close, key = loader.next, loader.close, f"workers_{workers}"
+        else:
+            it = in_thread(create_dataset(cfg, phase="train"))
+            next_batch, close, key = it.__next__, it.close, "synchronous"
+        waits = []
+
+        def one():
+            t0 = time.perf_counter()
+            batch = next_batch()
+            t1 = time.perf_counter()
+            tr.step(mode, tr._to_device(batch), 0)
+            waits.append((t1 - t0, time.perf_counter() - t1))
+
+        try:
+            one()
+            torch.cuda.synchronize()
+            waits.clear()
+            t0 = time.perf_counter()
+            for _ in range(LOADER_ITERS):
+                one()
+            torch.cuda.synchronize()
+            it_s = (time.perf_counter() - t0) / LOADER_ITERS
+            prof = (phase_profile(one, profile_dir, f"{label}_iteration_{key}")
+                    if profile_dir else None)
+        finally:
+            close()
+        r = res[key] = {
+            "iteration_s": it_s,
+            "loader_wait_s": sum(w for w, _ in waits[:LOADER_ITERS]) / LOADER_ITERS,
+            "copy_and_step_host_s": sum(c for _, c in waits[:LOADER_ITERS]) / LOADER_ITERS,
+            "idle_share_profiled": None if prof is None else prof["idle_share"]}
+        log(f"loader, {key.replace('_', ' ')}: {it_s * 1e3:.1f} ms an iteration over "
+            f"{LOADER_ITERS} (waiting on the loader {r['loader_wait_s'] * 1e3:.1f} ms, copy + "
+            f"step on the host {r['copy_and_step_host_s'] * 1e3:.1f} ms) against a "
+            f"{step_ms:.1f} ms step; one batch's clips made one by one on the host take "
+            f"{res['clip_s_per_batch'] * 1e3:.1f} ms"
+            + ("" if prof is None else f"; idle share of one profiled iteration "
+                                       f"{prof['idle_share']:.3f}"))
+    return res
+
+
+def restored_equal(tr, lvd_dir):
+    """The trainer's LVD teacher against the "latest" slot of phase 7's run."""
+    from waldo_tpu_torch.convert import to_jax
+    from waldo_tpu_torch.train import CheckpointManager
+    from waldo_tpu_torch.train.checkpoint import _flatten
+
+    now = to_jax(tr.syn)["pe"]
+    want = _flatten(CheckpointManager(lvd_dir).restore("pe", now, "latest", strict=True))
+    now = _flatten(now)
+    return set(now) == set(want) and all(np.array_equal(now[k], want[k]) for k in want)
+
+
+def run_and_check(tr, net, attr, n, label):
+    """Trainer.run(n) of a mode that trains ``net`` (the synthesizer's
+    ``attr``) against the frozen LVD teacher: no skipped step, every
+    parameter of the net moved, none of LVD's, no gradient on LVD, and the
+    "latest" slots of both nets restore equal. Returns (seconds, launches,
+    launches by key)."""
+    import torch
+    from waldo_tpu_torch.convert import to_jax
+    from waldo_tpu_torch.ops.kernels import reset_launches
+    from waldo_tpu_torch.train.checkpoint import _flatten
+
+    module = getattr(tr.syn, attr)
+    before = [p.detach().clone() for p in module.parameters()]
+    lvd_before = [p.detach().clone() for p in tr.syn.lvd.parameters()]
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.run(num_iter=n)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, by_key = read_launches()
+    st = tr.states[net]
+    log(f"{label}: Trainer.run({n}) {run_s:.1f} s; launches {launches} by key {by_key}; step "
+        f"count {int(st.count)}, nancount {int(st.nancount)}")
+    check(list(tr.states) == [net], f"optimizer states for {list(tr.states)}, not only {net}")
+    check(int(st.nancount) == 0 and int(st.count) == n, "a step was skipped (non-finite loss)")
+    unmoved = [k for (k, p), b in zip(module.named_parameters(), before) if torch.equal(p, b)]
+    lvd_moved = [k for (k, p), b in zip(tr.syn.lvd.named_parameters(), lvd_before)
+                 if not torch.equal(p, b)]
+    log(f"{len(before) - len(unmoved)} of {len(before)} {attr} parameter tensors changed, "
+        f"{len(lvd_moved)} of {len(lvd_before)} LVD ones")
+    check(not unmoved, f"{attr} parameters that did not change: {unmoved}")
+    check(not lvd_moved and all(p.grad is None for p in tr.syn.lvd.parameters()),
+          f"the frozen LVD teacher changed or holds gradients: {lvd_moved}")
+    for label_ in ("pe", net):
+        now = _flatten(to_jax(tr.syn)[label_])
+        back = _flatten(tr.ckpt.restore(label_, to_jax(tr.syn)[label_], "latest", strict=True))
+        check(all(np.array_equal(now[k], back[k]) for k in now),
+              f"the latest {label_} slot restores unequal")
+    log(f"latest pe and {net} slots restore equal")
+    return run_s, launches, by_key
+
+
+def time_steps(tr, mode, label, profile_dir=None):
+    """TRAIN_TIMED steps on one fixed batch after 2 warm-up steps (CUDA
+    events): ms per step, clips/s, the peak memory of one step, its metrics;
+    under --profile, one step traced."""
+    import torch
+    from waldo_tpu_torch.ops.kernels import reset_launches
+
+    batch = tr._to_device(tr.train_loader.next())
+    tr.train_loader.close()
+    for _ in range(2):
+        tr.step(mode, batch, 0)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = tr.step(mode, batch, 0)
+    torch.cuda.synchronize()
+    step_launches, _ = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(bool(torch.isfinite(v)) for v in metrics.values())
+          and int(metrics["nancount"]) == 0, f"non-finite metrics {metrics}")
+    ms = cuda_time(lambda: tr.step(mode, batch, 0), TRAIN_TIMED, warmup=0)
+    clips = tr.cfg.batch_size_vid / (ms / 1e3)
+    log(f"{label} step: {ms:.2f} ms over {TRAIN_TIMED} steps -> {clips:.3f} clips/s "
+        f"({tr.cfg.batch_size_vid} clips of {tr.cfg.data.vid_len} frames); peak memory "
+        f"{peak_gb:.2f} GB; metrics " + " ".join(f"{k} {float(v):.5f}"
+                                                 for k, v in sorted(metrics.items()))
+        + f"; launches per step {step_launches}")
+    prof = (phase_profile(lambda: tr.step(mode, batch, 0), profile_dir, f"_{label}")
+            if profile_dir else None)
+    return batch, {"ms_per_step": ms, "clips_per_s": clips, "peak_gb": peak_gb,
+                   "metrics": {k: float(v) for k, v in metrics.items()},
+                   "launches_per_step": step_launches, "profile": prof}
+
+
+def small_step_check(dev, cfg_s, loss_name, net, label):
+    """A small float32 training step on the card against the same step on
+    the CPU (the same seeded weights and clip), per leaf of ``net``'s
+    gradient at phase 7's tolerance, 1e-4 on the loss."""
+    import torch
+    from waldo_tpu_torch.convert import to_jax
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.train.checkpoint import _flatten
+
+    # a training clip drawn from a seeded stream (the same in every process)
+    ds = create_dataset(cfg_s, phase="train", rng=random.Random(3))
+    b_np = {k: v[None] for k, v in ds[0].items() if isinstance(v, np.ndarray)}
+    res = []
+    for d in (dev, "cpu"):  # the same seeded weights on both
+        syn = Synthesizer(cfg_s, device=d, seed=3)
+        syn.lvd.requires_grad_(net == "pe")  # the frozen teacher, unless LVD is trained
+        loss, _ = getattr(syn, loss_name)({k: torch.from_numpy(v).to(d) for k, v in b_np.items()},
+                                          0, generator=torch.Generator(device=d).manual_seed(0))
+        loss.backward()
+        res.append((float(loss.detach()), _flatten(to_jax(syn, grads=True)[net])))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = res
+    # per leaf: 5e-3 of the leaf's largest gradient (the CPU tests' factor
+    # against JAX) plus 1e-5 of the largest of all leaves, since a leaf whose
+    # gradient sums many cancelling terms carries the whole step's rounding
+    # (other summation orders, the K2' backward's atomics) at that scale
+    top = max(float(np.abs(v).max()) for v in g_cpu.values())
+    check(top > 0, f"the small {label} step has no gradient")
+    ratio, leaf = max((float(np.abs(g_gpu[k] - g_cpu[k]).max())
+                       / (5e-3 * float(np.abs(g_cpu[k]).max()) + 1e-5 * top), k) for k in g_cpu)
+    e_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"small float32 {label} step, card vs CPU: loss {l_gpu:.6f} / {l_cpu:.6f} (relative "
+        f"{e_loss:.3g}, tol 1e-4); per-leaf gradients within {ratio:.3g} of their tolerance "
+        f"(5e-3 x max|CPU leaf| + 1e-5 x max|CPU grad| = {top:.3g}), the tightest {leaf}")
+    check(e_loss <= 1e-4 and ratio <= 1.0,
+          f"the small {label} step on the card disagrees with the CPU")
+    return {"loss_err": e_loss, "grad_tol_ratio": ratio}
+
+
+def phase_flp(dev, card_name, root, lvd_dir, profile_dir=None):
+    """FLP training (scripts/cityscapes/train_flp.sh) on synthetic clips from
+    phase 7's LVD teacher: the parsed config, the teacher restored equal,
+    Trainer.run (no kernel launch: the path has none), the steps timed, the
+    loader's iterations and a small float32 step card vs CPU."""
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.train import Trainer
+
+    log(f"== 8. FLP training ({FLP_SCRIPT}) on synthetic clips, LVD teacher from phase 7")
+    mode = "vid_pose_generator"
+    cfg = parse_cli(train_lvd_flags(FLP_SCRIPT) + [
+        "--data.dataset", "synthetic", "--save_path", root, "--datetime", "smoke",
+        "--s_load_path", lvd_dir])
+    m = cfg.model
+    shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.width_size, m.embed_dim,
+             m.num_obj, m.pg_num_timesteps, m.oe_num_timesteps, m.ctx_len,
+             m.min_ctx_length_vid, m.max_ctx_length_vid)
+    log(f"config (B, T, H, W, embed, objects, pg/oe timesteps, ctx, ctx range): {shape}; "
+        f"FLP depths {m.pg_com_depth}/{m.pg_enc_depth}/{m.pg_dec_depth}, "
+        f"pe_estimator_init_mode {m.pe_estimator_init_mode!r}, losses "
+        f"{m.vid_pose_generator_losses}, workers {cfg.data.num_workers}, load_path {m.load_path}")
+    check(shape == (4, 14, 128, 256, 512, 16, 14, 5, 4, 4, 4) and cfg.load_dim == 0
+          and m.pe_estimator_init_mode == "zero" and m.use_pg and m.load_path == lvd_dir
+          and cfg.vid_modes == [mode], "the parsed train_flp.sh config is not the expected one")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=dev)
+    log(f"trainer ready in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in tr.syn.flp.parameters())} FLP parameters)")
+    check(restored_equal(tr, lvd_dir), "the LVD teacher did not restore equal to phase 7's slot")
+    log("LVD teacher restored equal to phase 7's latest slot")
+    run_s, launches, _ = run_and_check(tr, "pg", "flp", TRAIN_ITERS, "FLP")
+    check(not any(launches.values()), f"the FLP path launched a kernel: {launches}")
+    batch, res = time_steps(tr, mode, "flp", profile_dir)
+    check(not any(res["launches_per_step"].values()), "an FLP step launched a kernel")
+    del batch
+    res["loader"] = loader_timing(tr, mode, res["ms_per_step"], profile_dir, "_flp")
+    res.update(run_seconds=run_s, launches_run=launches)
+    del tr
+    torch.cuda.empty_cache()
+    # FLP's loss runs no warp, so no inversion: random pose heads on both
+    # nets, else the teacher's and FLP's poses start equal and the loss has
+    # no gradient
+    cfg_s = small_train_cfg()
+    cfg_s.model.use_pg, cfg_s.model.zero_init_dec = True, False
+    cfg_s.model.pe_estimator_init_mode = ""
+    cfg_s.model.pg_num_timesteps = cfg_s.data.vid_len
+    cfg_s.model.min_ctx_length_vid = cfg_s.model.max_ctx_length_vid = cfg_s.model.ctx_len
+    res["small_step"] = small_step_check(dev, cfg_s, "generate_pose_loss", "pg", "FLP")
+    return res
+
+
+def write_random_lpips_vgg(path, seed=0):
+    """Seeded random VGG16 LPIPS weights in the npz both packages read:
+    He-scaled conv kernels (kh,kw,I,O), small biases, positive lin heads."""
+    from waldo_tpu_torch.eval.lpips import VGG16_SPEC
+
+    rng = np.random.RandomState(seed)
+    arrays, cin, i = {}, 3, 0
+    for slice_i, n in enumerate(VGG16_SPEC):
+        ch = min(64 * 2 ** slice_i, 512)
+        for _ in range(n):
+            arrays[f"conv{i}_kernel"] = (rng.randn(3, 3, cin, ch)
+                                         * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+            arrays[f"conv{i}_bias"] = (rng.randn(ch) * 0.01).astype(np.float32)
+            cin, i = ch, i + 1
+        arrays[f"lin{slice_i}"] = (rng.rand(ch) * 0.1).astype(np.float32)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def capture_wif_sample_inputs(tr, mode, batch):
+    """One WIF step with the inputs of its two sample kernels copied: the
+    per-channel sample's (texture, grids) and the batch-mode sample's
+    (texture, grid)."""
+    import importlib
+
+    gs = importlib.import_module("waldo_tpu_torch.ops.grid_sample")
+    pc, sh, seen = gs.grid_sample_per_channel_cuda, gs._grid_sample_kernel, {}
+
+    def spy_pc(img, grids):
+        seen.setdefault("pc", []).append((img.clone(), grids.clone()))
+        return pc(img, grids)
+
+    def spy_sh(img, grid, tp_sz):
+        seen.setdefault("batch", []).append((img.clone(), grid.float().contiguous().clone(),
+                                             tp_sz))
+        return sh(img, grid, tp_sz)
+
+    gs.grid_sample_per_channel_cuda, gs._grid_sample_kernel = spy_pc, spy_sh
+    try:
+        tr.step(mode, batch, 0)
+    finally:
+        gs.grid_sample_per_channel_cuda, gs._grid_sample_kernel = pc, sh
+    check(len(seen.get("pc", [])) == 1 and len(seen.get("batch", [])) == 1
+          and seen["batch"][0][2] == 1,
+          f"expected one per-channel and one batch-mode sample in a WIF step, got "
+          f"{ {k: len(v) for k, v in seen.items()} }")
+    return seen["pc"][0], seen["batch"][0][:2]
+
+
+def tapped_texels(grids, h, w, boxes=None, chunk=17):
+    """The distinct texel positions the bilinear taps of grids (R, Ho, Wo,
+    2) read on R planes of h x w: each sample's in-range taps. With the
+    planes' nonzero boxes (R, 4), a sample whose footprint misses its box
+    reads none (csrc/bilinear.cuh: sample_boxed)."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import _top_left, tap_footprint_skips
+
+    n = 0
+    for r0 in range(0, grids.shape[0], chunk):
+        g = grids[r0:r0 + chunk]
+        x0, y0 = _top_left(g[..., 0], w), _top_left(g[..., 1], h)
+        row = torch.arange(r0, r0 + g.shape[0], device=g.device)[:, None, None].expand_as(x0)
+        if boxes is not None:
+            live = ~tap_footprint_skips(g[:, None], boxes[r0:r0 + chunk, None], h, w)[:, 0]
+            x0, y0, row = x0[live], y0[live], row[live]
+        keys = []
+        for y in (y0, y0 + 1):
+            for x in (x0, x0 + 1):
+                inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                keys.append(((row * h + y) * w + x)[inside])
+        n += int(torch.unique(torch.cat(keys)).numel())
+    return n
+
+
+def wif_kernel_rows(card_name, run_launches, pc_inputs, batch_inputs):
+    """K2' and K2's batch mode on the inputs one WIF step handed them (the
+    decode at 512x1024): each against its plain version, timed beside its
+    bound and one F.grid_sample call."""
+    import torch
+    import torch.nn.functional as F
+    from waldo_tpu_torch.ops.grid_sample import (grid_sample_multigrid_plain, grid_sample_plain,
+                                                 plane_boxes_plain)
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda, grid_sample_per_channel_cuda
+
+    rows = []
+    tex, grids = pc_inputs
+    f, h, w, c = tex.shape
+    p = grids.shape[2] * grids.shape[3]
+    tol = TOL_F32 if tex.dtype == torch.float32 else TOL_BF16
+    out = grid_sample_per_channel_cuda(tex, grids)[0]
+    want = grid_sample_multigrid_plain(tex, grids)
+    err = float((out.float() - want.float()).abs().max())
+    zero = float((want == 0).float().mean())
+    log(f"K2' on the WIF decode's inputs: texture {tuple(tex.shape)} {tex.dtype}, grids "
+        f"{tuple(grids.shape)}; max|err| {err:.3g} (tol {tol}); {zero:.4g} of the samples are 0")
+    check(bool(torch.isfinite(out).all()) and err <= tol, f"K2' on the WIF inputs: {err}")
+    del out, want
+    tex_fold = tex.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
+    grids_fold = grids.reshape(f * c, grids.shape[2], grids.shape[3], 2)
+    timed = dict(
+        ms=cuda_time(lambda: grid_sample_per_channel_cuda(tex, grids), 10),
+        plain_ms=cuda_time(lambda: grid_sample_multigrid_plain(tex, grids), 3),
+        library_ms=cuda_time(lambda: F.grid_sample(tex_fold, grids_fold, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=False), 10))
+    # the bound counts the texels this data makes the kernel read (its
+    # sparsity skip reads none for most samples), beside the dense count
+    n_s, es = f * c * p, tex.element_size()
+    _, boxes = plane_boxes_plain(tex)
+    texels = tapped_texels(grids.reshape(f * c, *grids.shape[2:]), h, w,
+                           boxes.reshape(f * c, 4))
+    box_texels = int(((boxes[..., 1] - boxes[..., 0] + 1).clamp(min=0)
+                      * (boxes[..., 3] - boxes[..., 2] + 1).clamp(min=0)).sum())
+    b = bound(card_name, es * texels + (8 + es) * n_s, 24 * n_s)
+    b_dense = bound(card_name, es * f * h * w * c + (8 + es) * n_s, 24 * n_s)
+    log(f"K2' on the WIF decode's inputs: the samples' taps read {texels} distinct texels, "
+        f"{texels / (f * h * w * c):.4f} of the texture (the planes' nonzero boxes hold "
+        f"{box_texels / (f * h * w * c):.4f} of it); bound {b[0]:.4f} ms on the texels read, "
+        f"{b_dense[0]:.4f} ms on a dense read of the texture")
+    rows.append({"name": f"grid_sample_per_channel WIF decode {f}x{h}x{w} C={c}", "route": "cuda",
+                 "source": K2_SOURCE, "replaces": K2_REPLACES,
+                 "launches": run_launches["grid_sample_per_channel"], "max_abs_err": err,
+                 **timed, "bound_ms": b[0], "bound_by": b[1], "zero_share": zero,
+                 "texels_read_share": texels / (f * h * w * c),
+                 "box_share": box_texels / (f * h * w * c), "dense_bound_ms": b_dense[0]})
+    del tex, grids, tex_fold, grids_fold, pc_inputs, boxes
+    torch.cuda.empty_cache()
+
+    img, grid = batch_inputs
+    f, h, w, c = img.shape
+    p = grid.shape[1] * grid.shape[2]
+    tol = TOL_F32 if img.dtype == torch.float32 else TOL_BF16
+    out = grid_sample_cuda(img, grid, 1)
+    want = grid_sample_plain(img, grid)
+    err = float((out.float() - want.float()).abs().max())
+    log(f"K2 batch mode on the WIF decode's inputs: texture {tuple(img.shape)} {img.dtype}, grid "
+        f"{tuple(grid.shape)}; max|err| {err:.3g} (tol {tol})")
+    check(bool(torch.isfinite(out).all()) and err <= tol, f"K2 batch mode on the WIF inputs: {err}")
+    del out, want
+    img_nchw = img.permute(0, 3, 1, 2).float().contiguous()
+    timed = dict(
+        ms=cuda_time(lambda: grid_sample_cuda(img, grid, 1), 10),
+        plain_ms=cuda_time(lambda: grid_sample_plain(img, grid), 3),
+        library_ms=cuda_time(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                                   padding_mode="zeros", align_corners=False), 10))
+    # the texels the grid's taps reach, every channel of each
+    texels = tapped_texels(grid, h, w) * c
+    b = bound(card_name, img.element_size() * (texels + f * p * c) + 8 * f * p,
+              f * p * (16 + 8 * c))
+    log(f"K2 batch mode on the WIF decode's inputs: the grid's taps read "
+        f"{texels / (f * h * w * c):.4f} of the texture")
+    rows.append({"name": f"grid_sample batch mode WIF decode {f}x{h}x{w} C={c}", "route": "cuda",
+                 "source": K2_SOURCE, "replaces": K2_REPLACES,
+                 "launches": run_launches["grid_sample"], "max_abs_err": err,
+                 **timed, "bound_ms": b[0], "bound_by": b[1],
+                 "texels_read_share": texels / (f * h * w * c)})
+    del img, grid, img_nchw, batch_inputs
+    torch.cuda.empty_cache()
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
+            f"F.grid_sample {r['library_ms']:.4f} ms")
+    return rows
+
+
+def phase_wif(dev, card_name, root, lvd_dir, profile_dir=None):
+    """WIF training (scripts/cityscapes/train_wif.sh) on synthetic clips from
+    phase 7's LVD teacher, (a) without LPIPS weights (the warning, L1 only)
+    and (b) with seeded random VGG16 LPIPS weights: the parsed config, the
+    teacher restored equal, Trainer.run with strict launch counts (the
+    decode's K2' and K2 batch-mode sample and the pre-pass once a step), the
+    steps timed; in (a) the loader's iterations and the two samples against
+    their plain versions on the inputs a step hands them; a small float32
+    step card vs CPU."""
+    import contextlib
+    import io
+
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.train import Trainer
+
+    log(f"== 9. WIF training ({WIF_SCRIPT}) on synthetic clips, LVD teacher from phase 7")
+    mode = "vid_inpainting"
+    lpips_dir = os.path.join(root, "lpips")
+    cfg_args = train_lvd_flags(WIF_SCRIPT) + ["--data.dataset", "synthetic", "--save_path", root,
+                                              "--s_load_path", lvd_dir]
+    res, rows = {}, []
+    old_env = os.environ.get("WALDO_LPIPS_WEIGHTS")
+    os.environ["WALDO_LPIPS_WEIGHTS"] = lpips_dir
+    try:
+        for variant in ("l1", "lpips"):
+            cfg = parse_cli(cfg_args + ["--datetime", f"smoke_{variant}"])
+            m = cfg.model
+            shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.load_dim,
+                     cfg.load_dim, int(cfg.load_dim * cfg.aspect_ratio), cfg.flow_dim, m.ii_depth, m.ii_embed_dim,
+                     m.embed_dim, m.num_obj, m.ctx_len)
+            log(f"-- variant {variant}: config (B, T, dim, load, H, W, flow_dim, ii depth, ii "
+                f"embed, embed, objects, ctx): {shape}; ii_score {m.ii_score}, ii_ab {m.ii_ab}, "
+                f"losses {m.vid_inpainting_losses}, sample_precision {m.sample_precision!r}, "
+                f"workers {cfg.data.num_workers}")
+            check(shape == (8, 5, 128, 512, 512, 1024, 128, 6, 512, 512, 16, 4) and m.ii_score
+                  and m.ii_ab and m.use_ii and m.load_path == lvd_dir
+                  and m.vid_inpainting_losses == ["sharp_vid", "lpips_vid"],
+                  "the parsed train_wif.sh config is not the expected one")
+            if variant == "lpips":
+                write_random_lpips_vgg(os.path.join(lpips_dir, "lpips_vgg.npz"), seed=0)
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                tr = Trainer(cfg, device=dev)
+            sys.stderr.write(err.getvalue())
+            warned = "L1 ONLY" in err.getvalue()
+            log(f"trainer ready in {time.perf_counter() - t0:.1f} s "
+                f"({sum(p.numel() for p in tr.syn.wif.parameters())} WIF parameters); LPIPS "
+                f"{'loaded' if tr.syn.lpips is not None else 'absent'}, warning "
+                f"{'printed' if warned else 'not printed'}")
+            check((tr.syn.lpips is None) == (variant == "l1") and warned == (variant == "l1"),
+                  f"LPIPS wiring in variant {variant}")
+            check(restored_equal(tr, lvd_dir),
+                  "the LVD teacher did not restore equal to phase 7's slot")
+            n = TRAIN_ITERS
+            run_s, launches, by_key = run_and_check(tr, "ii", "wif", n, f"WIF ({variant})")
+            check(launches == {"warp_alpha_ctx": 0, "grid_sample": n,
+                               "grid_sample_per_channel": n, "grid_sample_bwd": 0,
+                               "grid_sample_per_channel_bwd": 0, "bias_act": 0,
+                               "plane_boxes": n},
+                  f"expected one launch of K2' forward, K2's batch-mode forward and the "
+                  f"pre-pass per step, got {launches}")
+            check(by_key["grid_sample"] == {32: n} and by_key["grid_sample_per_channel"] == {32: n},
+                  f"unexpected sample shapes {by_key}")
+            batch, r = time_steps(tr, mode, f"wif_{variant}", profile_dir)
+            check(("lpips_vid" in r["metrics"]) == (variant == "lpips"),
+                  f"lpips_vid metric in variant {variant}: {sorted(r['metrics'])}")
+            check(all(v == (1 if k in ("grid_sample", "grid_sample_per_channel", "plane_boxes")
+                            else 0) for k, v in r["launches_per_step"].items()),
+                  f"launches in one WIF step: {r['launches_per_step']}")
+            r.update(run_seconds=run_s, launches_run=launches)
+            if variant == "l1":
+                pc_inputs, batch_inputs = capture_wif_sample_inputs(tr, mode, batch)
+                del batch
+                r["loader"] = loader_timing(tr, mode, r["ms_per_step"], profile_dir, "_wif")
+                del tr
+                torch.cuda.empty_cache()
+                rows = wif_kernel_rows(card_name, launches, pc_inputs, batch_inputs)
+                del pc_inputs, batch_inputs
+            else:
+                del tr, batch
+            torch.cuda.empty_cache()
+            res[variant] = r
+        os.environ["WALDO_LPIPS_WEIGHTS"] = os.path.join(root, "no_lpips")
+        # without ii_ab's zero-initialized output conv, so that every WIF
+        # leaf has a gradient to compare
+        cfg_s = small_train_cfg()
+        cfg_s.model.use_ii, cfg_s.model.ii_depth, cfg_s.model.ii_embed_dim = True, 2, 16
+        cfg_s.model.ii_ab = False
+        cfg_s.model.vid_inpainting_losses = ["sharp_vid"]
+        res["small_step"] = small_step_check(dev, cfg_s, "inpaint_loss", "ii", "WIF")
+    finally:
+        if old_env is None:
+            os.environ.pop("WALDO_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["WALDO_LPIPS_WEIGHTS"] = old_env
+    return res, rows
+
 
 
 
@@ -1845,8 +2331,8 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=10, help="timed predicts")
     ap.add_argument("--out", default=None, help="write the full results as JSON here")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace one flagship predict, one MAT clip and one training step "
-                         "with torch.profiler into DIR")
+                    help="trace one flagship predict, one MAT clip, and one step and one "
+                         "loop iteration of each training phase with torch.profiler into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -1868,8 +2354,16 @@ def main(argv=None):
                                       mat_res["launches_by_key"], main_res["launches"],
                                       mat_res["launches"]["bias_act"], k1_seen)
     del k1_seen
-    train_res, train_rows = phase_train(dev, name, args.profile)
-    rows += train_rows
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        train_res, train_rows, lvd_dir = phase_train(dev, name, root, args.profile)
+        rows += train_rows
+        flp_res = phase_flp(dev, name, root, lvd_dir, args.profile)
+        wif_res, wif_rows = phase_wif(dev, name, root, lvd_dir, args.profile)
+        rows += wif_rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -1878,6 +2372,7 @@ def main(argv=None):
                                 "bwd_sass_atomics": bwd_sass, "ptxas": resources,
                                 "per_channel": per_channel,
                                 "main": main_res, "mat": mat_res, "train": train_res,
+                                "flp": flp_res, "wif": wif_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

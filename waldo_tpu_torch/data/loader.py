@@ -1,12 +1,29 @@
-"""Batch loader (counterpart of waldo_tpu/data/loader.py), in one process:
-shuffled epochs from a seeded permutation, drop_last, the clips of a batch
-made in order (a training clip draws its seed from the dataset's stream, so
-the order fixes the data)."""
+"""Prefetching batch loader (counterpart of waldo_tpu/data/loader.py), in one
+process: shuffled epochs from a seeded permutation, drop_last, and a
+producer thread that makes each batch's clips on a pool of ``num_workers``
+threads and keeps up to ``prefetch`` batches ready in a bounded queue.
+
+A batch does not depend on ``num_workers``. A dataset that draws each
+clip's seed from a shared random stream (the synthetic training clips)
+splits the draw from the work: ``clip_seed(index)`` runs on the producer,
+in batch order, and ``make_clip(index, seed)`` on the workers. Any other
+dataset is indexed (``dataset[index]``) on the workers.
+
+A worker's exception reaches the consumer as ``RuntimeError("data loader
+worker failed")``; a producer that ends without a result fails the
+consumer too, so it never waits for ever. Leaving the iterator early (or
+closing it) stops the producer.
+"""
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
+
+_POLL_S = 0.1  # how often a blocked producer or consumer looks at the other
 
 
 def collate(samples) -> Dict[str, np.ndarray]:
@@ -21,11 +38,13 @@ def collate(samples) -> Dict[str, np.ndarray]:
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = True):
+                 num_workers: int = 4, prefetch: int = 2, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
         self.epoch = 0
 
@@ -44,10 +63,57 @@ class DataLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _make_batch(self, pool, bidx):
+        ds = self.dataset
+        if hasattr(ds, "clip_seed"):
+            seeds = [ds.clip_seed(i) for i in bidx]  # the stream's draws, in order
+            return collate(list(pool.map(ds.make_clip, bidx, seeds)))
+        return collate(list(pool.map(ds.__getitem__, bidx)))
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._epoch_indices()
-        for i in range(0, len(idx), self.batch_size):
-            yield collate([self.dataset[j] for j in idx[i: i + self.batch_size]])
+        batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=_POLL_S)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for bidx in batches:
+                        if stop.is_set() or not put(self._make_batch(pool, bidx)):
+                            return
+            except BaseException as e:  # noqa: BLE001 -- re-raised in the consumer
+                put(e)
+                return
+            put(None)
+
+        th = threading.Thread(target=produce, name="DataLoader producer", daemon=True)
+        th.start()
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=_POLL_S)
+                except queue.Empty:
+                    if th.is_alive() or not q.empty():
+                        continue
+                    raise RuntimeError("data loader worker failed: the producer ended "
+                                       "without a result") from None
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise RuntimeError("data loader worker failed") from item
+                yield item
+        finally:
+            stop.set()
 
 
 class InfiniteLoader:
@@ -69,3 +135,7 @@ class InfiniteLoader:
                 ds.set_fold(ds.fold + 1)
             self._it = iter(self.loader)
             return next(self._it)
+
+    def close(self):
+        """Stop the current epoch's producer."""
+        self._it.close()

@@ -21,19 +21,26 @@ class SyntheticDataset(BaseVideoDataset):
         return {"vid_frame_paths": [[f"synthetic_{phase}_{i}"]
                                     for i in range(self.num_clips[phase])]}
 
+    def clip_seed(self, index) -> int:
+        """A training clip's seed is the phase stream's next draw; the
+        others' come from (phase, index), which Python's string hashing makes
+        stable within one process only."""
+        if self.phase == "train":
+            return self.rng.randrange(2 ** 31)
+        return hash((self.phase, index)) % (2 ** 31)
+
     def __getitem__(self, index):
+        return self.make_clip(index, self.clip_seed(index))
+
+    def make_clip(self, index, seed):
+        """The clip at ``index`` made from ``seed``; reads no shared state,
+        so the loader's workers run it in parallel."""
         cfg, d = self.cfg, self.cfg.data
         t = d.vid_len
         h = self.dim
         w = int(self.dim * cfg.aspect_ratio)
         fdim = cfg.flow_dim if cfg.flow_dim > 0 else cfg.dim
         fh, fw = fdim, int(fdim * cfg.aspect_ratio)
-        # a training clip draws its seed from the phase's stream; the others
-        # from (phase, index), which Python's string hashing makes stable
-        # within one process only
-        seed = hash((self.phase, index)) % (2 ** 31)
-        if self.phase == "train":
-            seed = self.rng.randrange(2 ** 31)
         rng = np.random.RandomState(seed)
 
         nl = d.num_lyt

@@ -6,8 +6,16 @@ done with attention key masks and where-selects, as in the JAX package.
 
 Shapes: obj_pose (B,T,No,Lo,2), bg_pose (B,T,1,L,2), occ_score (B,T,No),
 x_obj (B,No,Lo,C), x_bg (B,L,C), ctx_mask (B,T) bool (True = context).
+
+Training adds the JAX package's noise where the config asks for it
+(``pg_embed_noise``: one N(0, 1) draw per clip on the prediction slots'
+initial tokens; ``pg_inject_noise``: token noise in the decoder's self
+attention), drawn from the ``noise`` generator the caller hands the forward;
+inference (no generator) is deterministic.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -62,7 +70,7 @@ class PoseEncoder(nn.Module):
         trunc_normal_(self.lay_embed, generator)
         trunc_normal_(self.time_embed, generator)
 
-    def forward(self, obj_pose, bg_pose, occ_score, z, ctx_mask):
+    def forward(self, obj_pose, bg_pose, occ_score, z, ctx_mask, noise=None):
         m = self.cfg.model
         b, t, no, lo, _ = obj_pose.shape
         l = m.latent_shape[0] * m.latent_shape[1]
@@ -85,6 +93,8 @@ class PoseEncoder(nn.Module):
         x = self.blocks(x.reshape(b, tt * (no + 1), c), key_mask=key_mask)
         x = self.norm(x).reshape(b, tt, no + 1, c)
         x_init = (self.time_embed[:, :tt] + self.lay_embed).expand(b, tt, no + 1, c)
+        if m.pg_embed_noise and noise is not None:
+            x_init = x_init + torch.randn((b, 1, 1, c), generator=noise, device=x.device)
         x = torch.where(ctx_mask[:, :, None, None], x, x_init)
         return x, ctx_mask  # ctx_mask now includes the z slot when cat_z
 
@@ -129,7 +139,7 @@ class PoseDecoder(nn.Module):
                              persistent=False)
 
     def forward(self, obj_pose, bg_pose, occ_score, x, ctx_mask_ext, last_obj=None,
-                last_bg=None):
+                last_bg=None, noise=None):
         m = self.cfg.model
         b, tt, nlay, c = x.shape
         no = nlay - 1
@@ -143,7 +153,7 @@ class PoseDecoder(nn.Module):
         tokens = x.reshape(b, tt * nlay, c)
         x_pred = tokens
         for self_blk, cross_blk in zip(self.self_blocks, self.cross_blocks):
-            x_pred = self_blk(x_pred, key_mask=key_pred)
+            x_pred = self_blk(x_pred, key_mask=key_pred, noise=noise)
             x_pred = cross_blk(x_pred, x_ctx=tokens, key_mask=key_ctx)
 
         x_pred = self.norm(x_pred).reshape(b, tt, nlay, c)
@@ -198,10 +208,13 @@ class FLPNet(nn.Module):
         self.encode = PoseEncoder(cfg, dtype)
         self.decode = PoseDecoder(cfg, dtype)
 
-    def forward(self, obj_pose, bg_pose, occ_score, x_obj, x_bg, last_obj, last_bg, ctx_mask):
+    def forward(self, obj_pose, bg_pose, occ_score, x_obj, x_bg, last_obj, last_bg, ctx_mask,
+                noise: Optional[torch.Generator] = None):
+        """``noise``: the training noise's stream (a generator on the inputs'
+        device); None runs deterministic inference."""
         z_obj = self.compress(x_obj)  # (B, No, C)
         z_bg = self.compress(x_bg[:, None])  # (B, 1, C)
         z = torch.cat([z_bg, z_obj], dim=1)  # (B, No+1, C)
-        x, ctx_mask_ext = self.encode(obj_pose, bg_pose, occ_score, z, ctx_mask)
+        x, ctx_mask_ext = self.encode(obj_pose, bg_pose, occ_score, z, ctx_mask, noise=noise)
         return self.decode(obj_pose, bg_pose, occ_score, x, ctx_mask_ext,
-                           last_obj=last_obj, last_bg=last_bg)
+                           last_obj=last_obj, last_bg=last_bg, noise=noise)

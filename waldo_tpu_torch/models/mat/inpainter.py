@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ...nn import init_module
 from ...ops import resize
 from ...utils.profiling import annotate
-from ..synthesizer import _resolve_device
+from ...utils import resolve_device
 from .mat import Generator
 
 
@@ -49,7 +49,7 @@ class MatInpainter:
     def __init__(self, weights_path: Optional[str] = None, resolution: int = 512,
                  device="cuda", seed: int = 0):
         self.res = resolution
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.net = Generator(img_resolution=resolution)
         if weights_path:
             from ...convert import mat_from_jax

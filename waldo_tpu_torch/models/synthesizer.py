@@ -3,19 +3,24 @@ waldo_tpu/models/synthesizer.py).
 
 Batch layout (channel-last): vid (B,T,Hd,Wd,3) in [-1,1], lyt
 (B,T,Hd,Wd,Nl) scaled to {-5, 5}, flow (B,T,H,W,2). Ported: ``predict``
-(vid_prediction) and the LVD training loss ``extract_object_loss`` (modes
-vid_object_extractor and img_object_extractor); the FLP and WIF losses come
-with their training slices.
+(vid_prediction) and the training losses of the three nets:
+``extract_object_loss`` (LVD; modes vid_object_extractor and
+img_object_extractor), ``generate_pose_loss`` (FLP, vid_pose_generator) and
+``inpaint_loss`` (WIF, vid_inpainting, without the GAN terms). FLP and WIF
+train against a frozen LVD teacher, run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
 import math
+import sys
 from typing import Dict, Optional
 
 import torch
 
+from ..eval.lpips import LPIPS
 from ..nn import init_module, resolve_dtype
 from ..ops import EdgeExtractor, gaussian_blur, resize
+from ..utils import resolve_device
 from ..utils.profiling import annotate
 from .flp import FLPNet
 from .lvd import LVDNet, bg_alpha_buffer, compute_occ
@@ -35,19 +40,15 @@ def compute_pts_regularization(pose, num_h, num_w):
     return reg
 
 
+def _masked_mean(x, mask):
+    """Mean of x over the elements where mask (broadcastable) is True."""
+    mask = mask.expand(x.shape).to(x.dtype)
+    return (x * mask).sum() / mask.sum().clamp(min=1.0)
+
+
 def _topk_mean(x, k, dim):
     """Mean of the k largest entries along dim."""
     return x.movedim(dim, -1).topk(k, dim=-1).values.mean(dim=-1)
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"waldo_tpu_torch asks for device {str(dev)!r} (the default) but "
-            "torch.cuda.is_available() is False; pass device='cpu' to run on "
-            "the CPU")
-    return dev
 
 
 class Synthesizer:
@@ -62,7 +63,7 @@ class Synthesizer:
     def __init__(self, cfg, device="cuda", seed: int = 0):
         self.cfg = cfg
         m = cfg.model
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         dtype = resolve_dtype(getattr(cfg, "compute_dtype", "float32"))
         gen = torch.Generator().manual_seed(seed)
         self.lvd = LVDNet(cfg, dtype) if m.use_pe else None
@@ -79,6 +80,17 @@ class Synthesizer:
         self.lyt_idx = {k: torch.tensor(v, dtype=torch.long, device=self.device)
                         for k, v in (("fg", d.fg_idx), ("bg", d.bg_idx), ("other", d.other_idx))}
         self.bg_alpha = torch.as_tensor(bg_alpha_buffer(cfg), device=self.device)
+        # the perceptual loss is on when LPIPS weights exist on disk
+        # (eval/lpips.py; none are in the repo and none are fetched)
+        self.lpips = None
+        if "lpips_vid" in m.vid_inpainting_losses and m.use_ii:
+            self.lpips = LPIPS.maybe_load("vgg", device=self.device)
+            if self.lpips is None:
+                print("WARNING: lpips_vid is in vid_inpainting_losses but no converted LPIPS "
+                      f"weights exist at {LPIPS.weights_path('vgg')}; training will optimize "
+                      "L1 ONLY - a different objective than the reference train_wif.sh. "
+                      "Convert weights with waldo_tpu_torch.eval.lpips."
+                      "convert_lpips_state_dict (and numpy.savez).", file=sys.stderr, flush=True)
 
     def nets(self) -> Dict[str, torch.nn.Module]:
         """The nets under the JAX package's parameter-tree keys."""
@@ -424,6 +436,98 @@ class Synthesizer:
         mv_l, fm_l = mv.movedim(-1, 2), fm.movedim(-1, 2)  # B T 1 H W
         metrics["cell_dis"] = ((mv_l + m.cell_dis_eps) * (1 - fm_l) * cell_dis).amin(dim=2).mean()
         metrics["center_dis"] = (mv_l * center_dis).amin(dim=2).mean()
+
+    # ------------------------------------------------------------------
+    # vid_pose_generator
+    # ------------------------------------------------------------------
+
+    def generate_pose_loss(self, batch, global_iter=0, *, generator: torch.Generator):
+        """The FLP training loss: the frozen LVD teacher's poses of every
+        frame, and FLP's rollout from a context of ``ctx_size`` frames
+        (drawn per clip from ``generator``, which also draws FLP's training
+        noise) held to them on the frames it predicts. Returns (loss,
+        metrics); the loss is differentiable in the FLP parameters only."""
+        m = self.cfg.model
+        if m.dropout > 0:
+            raise NotImplementedError("FLP dropout is not ported (ROADMAP.md queue 1 item 10): "
+                                      "the scripts train with 0.0")
+        losses = m.vid_pose_generator_losses
+        vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
+        b, t = vid.shape[:2]
+        dev = vid.device
+        ctx_size = torch.randint(m.min_ctx_length_vid, m.max_ctx_length_vid + 1, (b, 1),
+                                 device=dev, generator=generator)
+        ctx_mask = torch.arange(t, device=dev)[None, :] < ctx_size  # (B, T)
+
+        with torch.no_grad():  # the frozen LVD teacher
+            p = self.lvd_pass(self.make_input(vid, lyt, flow), m.ctx_len)
+        with annotate("flp/rollout"):
+            pred_obj, pred_bg, pred_occ = self.flp(
+                p["obj_pose"], p["bg_pose"], p["occ_score"], p["x_obj"], p["x_bg"],
+                p["last_obj"], p["last_bg"], ctx_mask, noise=generator)
+
+        pm = ~ctx_mask
+        metrics = {
+            "rec_obj_pose": _masked_mean((p["obj_pose"] - pred_obj).abs(),
+                                         pm[:, :, None, None, None]),
+            "rec_bg_pose": _masked_mean((p["bg_pose"] - pred_bg).abs(),
+                                        pm[:, :, None, None, None]),
+            "rec_occ_score": _masked_mean((p["occ_score"] - pred_occ).abs(), pm[:, :, None]),
+        }
+        nll = torch.zeros((), device=dev)
+        for name in ("rec_obj_pose", "rec_bg_pose", "rec_occ_score"):
+            if name in losses:
+                nll = nll + metrics[name] * getattr(m, f"lambda_{name}")
+        metrics["loss"] = nll
+        return nll, {k: v.detach() for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    # vid_inpainting
+    # ------------------------------------------------------------------
+
+    def inpaint_loss(self, batch, global_iter=0, generator: Optional[torch.Generator] = None):
+        """The WIF training loss, without the GAN terms (``adv``): the frozen
+        LVD teacher's layers warp the context frames to each frame after
+        them (the unfused training warp, under ``torch.no_grad``), and WIF's
+        fusion of them is held to the real frames by L1 (``sharp_vid``) and,
+        when the weights exist, the VGG16 LPIPS (``lpips_vid``). Nothing in
+        it is random; ``generator`` is taken for the trainer's sake. Returns
+        (loss, metrics); the loss is differentiable in the WIF parameters
+        only."""
+        m = self.cfg.model
+        losses = m.vid_inpainting_losses
+        vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
+        b, t = vid.shape[:2]
+        ctx_len = m.ctx_len
+        dev = vid.device
+        with torch.no_grad():
+            p = self.lvd_pass(self.make_input(vid, lyt, flow), ctx_len)
+            occ, obj_alpha, bg_alpha, grids = self.alpha_grid_occ(
+                p["x_obj"], p["obj_pose"], p["bg_pose"], p["occ_score"])
+            ctx_ts = torch.arange(ctx_len, device=dev)[None, :, None].expand(
+                b, ctx_len, t - ctx_len)
+            pred_ts = torch.arange(ctx_len, t, device=dev)
+            out = self.decode_output(torch.cat([vid, lyt], dim=-1), grids, occ, obj_alpha,
+                                     bg_alpha, p["cls"], ctx_ts, pred_ts,
+                                     restrict_to_ctx=False, hd_window=ctx_len)
+            rec_vid, raw_output = out[0][..., :3], out[5]
+            del out, p, grids
+
+        with annotate("wif/fuse_pred"):
+            inp = self.wif(raw_output)  # (B, Tp, Hd, Wd, 3)
+        tgt = vid[:, ctx_len:]
+        metrics = {"sharp_vid": (inp - tgt).abs().mean(),
+                   "sharp_rec": (rec_vid - tgt).abs().mean()}
+        metrics["sharp_delta"] = metrics["sharp_vid"] - metrics["sharp_rec"]
+        nll = torch.zeros((), device=dev)
+        if "sharp_vid" in losses:
+            nll = nll + metrics["sharp_vid"] * m.lambda_sharp_vid
+        if "lpips_vid" in losses and self.lpips is not None:
+            with annotate("loss/lpips"):
+                metrics["lpips_vid"] = self.lpips(inp, tgt).mean()
+            nll = nll + metrics["lpips_vid"] * m.lambda_lpips_vid
+        metrics["loss"] = nll
+        return nll, {k: v.detach() for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
     # vid_prediction

@@ -6,6 +6,11 @@ logits are taken in float32, masked keys get -1e9 (never -inf, so a fully
 masked row cannot turn to NaN), and the probabilities return to the compute
 dtype for the value product. Ported types: ``full``, ``cross``, ``obj`` and
 ``cls``; the others raise until they are ported.
+
+Training-time token noise (FLP's ``pg_inject_noise``): an attention built
+with ``noise=True`` adds ``N(0, 1) * noise_strength``, one draw per token, to
+its input when its caller hands it a ``noise`` generator (the JAX package's
+``deterministic=False`` with a "noise" stream); without one it adds none.
 """
 from __future__ import annotations
 
@@ -96,6 +101,15 @@ def _mha(q, k, v, num_heads: int, key_mask: Optional[torch.Tensor] = None):
     return out.transpose(1, 2).reshape(b, nq, c)
 
 
+def _add_noise(x, strength, noise: Optional[torch.Generator]):
+    """x (B, N, C) plus one N(0, 1) draw per token from ``noise`` times
+    ``strength``; x itself where either is None."""
+    if strength is None or noise is None:
+        return x
+    eps = torch.randn(tuple(x.shape[:2]) + (1,), generator=noise, device=x.device)
+    return x + eps * strength
+
+
 class FullAttention(nn.Module):
     """Self-attention with an optional key mask."""
 
@@ -104,15 +118,14 @@ class FullAttention(nn.Module):
         self.num_heads = num_heads
         self.qkv = Dense(dim, dim * 3, bias=False, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
-        # the strength of the training-time token noise (deterministic
-        # inference adds none; kept so converted trees match)
         self.noise_strength = nn.Parameter(torch.empty(())) if noise else None
 
     def init_parameters(self, generator):
         if self.noise_strength is not None:
             self.noise_strength.zero_()
 
-    def forward(self, x, x_ctx=None, key_mask=None):
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None):
+        x = _add_noise(x, self.noise_strength, noise)
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         return self.proj(_mha(q, k, v, self.num_heads, key_mask))
 
@@ -132,7 +145,8 @@ class CrossAttention(nn.Module):
         if self.noise_strength is not None:
             self.noise_strength.zero_()
 
-    def forward(self, x, x_ctx=None, key_mask=None):
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None):
+        x = _add_noise(x, self.noise_strength, noise)
         k, v = self.kv(x_ctx).chunk(2, dim=-1)
         return self.proj(_mha(self.q(x), k, v, self.num_heads, key_mask))
 
@@ -148,7 +162,7 @@ class ObjAttention(nn.Module):
         self.kv = Dense(dim, dim * 2, bias=False, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
 
-    def forward(self, x, x_ctx=None, key_mask=None):
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None):
         k_obj, v_obj = self.kv(x).chunk(2, dim=-1)
         k_ctx, v_ctx = self.kv(x_ctx).chunk(2, dim=-1)
         k = torch.cat([k_obj, k_ctx], dim=1)
@@ -166,7 +180,7 @@ class ClsAttention(nn.Module):
         self.kv = Dense(dim, dim * 2, bias=False, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
 
-    def forward(self, x, x_ctx=None, key_mask=None):
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None):
         z = torch.cat([x, x_ctx], dim=1)
         k, v = self.kv(z).chunk(2, dim=-1)
         return self.proj(_mha(self.q(x), k, v, self.num_heads))
@@ -205,8 +219,8 @@ class Block(nn.Module):
         self.norm2 = CustomNorm(norm_layer, dim)
         self.mlp = Mlp(dim, dtype=dtype)
 
-    def forward(self, x, x_ctx=None, key_mask=None):
-        x = x + self.attn(self.norm1(x), x_ctx=x_ctx, key_mask=key_mask)
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None):
+        x = x + self.attn(self.norm1(x), x_ctx=x_ctx, key_mask=key_mask, noise=noise)
         return x + self.mlp(self.norm2(x))
 
 

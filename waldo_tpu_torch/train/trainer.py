@@ -3,8 +3,14 @@
 Iteration-based: one step per active mode per iteration, periodic eval with
 a metric-gated "best_vid" checkpoint, periodic "latest" and numbered
 checkpoints, ``cont_train`` resume. Ported modes: vid_object_extractor and
-img_object_extractor (LVD). The TensorBoard logger and its visuals are not
-ported yet: ``logger`` is None, as on a JAX process other than the first.
+img_object_extractor (LVD), vid_pose_generator (FLP) and vid_inpainting (WIF,
+without the GAN losses ``adv`` and ``dis``). Only the nets of the run's
+modes take optimizer steps; the others (FLP's and WIF's LVD teacher,
+restored from ``--s_load_path``) are frozen: their parameters ask for no
+gradient. Every net is saved. The batches come from the prefetching loader,
+``cfg.data.num_workers`` threads making the clips. The TensorBoard logger and
+its visuals are not ported yet: ``logger`` is None, as on a JAX process
+other than the first.
 """
 from __future__ import annotations
 
@@ -28,10 +34,6 @@ MODE_TO_NET = {
     "vid_pose_generator": "pg",
     "vid_inpainting": "ii",
 }
-_NOT_PORTED = {
-    "vid_pose_generator": "FLP training (ROADMAP.md queue: FLP and WIF training)",
-    "vid_inpainting": "WIF training (ROADMAP.md queue: FLP and WIF training)",
-}
 
 
 class Trainer:
@@ -39,19 +41,27 @@ class Trainer:
         self.cfg = cfg
         self._train_modes = list(cfg.vid_modes) + list(cfg.img_modes)
         for mode in self._train_modes:
-            if mode in _NOT_PORTED:
-                raise NotImplementedError(f"mode {mode!r} is not ported yet: {_NOT_PORTED[mode]}")
             if mode not in MODE_TO_NET:
                 raise ValueError(f"unknown training mode {mode!r}")
+        gan = sorted({"adv", "dis"} & set(cfg.model.vid_inpainting_losses))
+        if "vid_inpainting" in self._train_modes and gan:
+            raise NotImplementedError(f"the GAN losses {gan} of vid_inpainting are not ported "
+                                      f"yet (ROADMAP.md queue 1 item 7)")
         self.syn = Synthesizer(cfg, device=device, seed=cfg.seed)
         self.device = self.syn.device
         self.ckpt = CheckpointManager(cfg.checkpoint_path)
         self.logger = None
         save_config(cfg)
         self._maybe_restore()
-        self.states: Dict[str, NetState] = {
-            net: NetState(module, cfg.model) for net, module in self.syn.nets().items()}
-        # the losses' random draws (input dropout, "prev_rd" contexts)
+        trained = {MODE_TO_NET[mode] for mode in self._train_modes}
+        self.states: Dict[str, NetState] = {}
+        for net, module in self.syn.nets().items():
+            if net in trained:
+                self.states[net] = NetState(module, cfg.model)
+            else:
+                module.requires_grad_(False)
+        # the losses' random draws (input dropout, "prev_rd" contexts, FLP's
+        # context lengths and training noise)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.train_loader = None
         self.valid_loader = None
@@ -90,13 +100,20 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in batch.items() if isinstance(v, np.ndarray)}
 
+    def _loss(self, mode, batch, it, generator):
+        if mode == "vid_pose_generator":
+            return self.syn.generate_pose_loss(batch, it, generator=generator)
+        if mode == "vid_inpainting":
+            return self.syn.inpaint_loss(batch, it, generator=generator)
+        return self.syn.extract_object_loss(batch, it, is_img=mode.startswith("img"),
+                                            generator=generator)
+
     def step(self, mode, batch, it):
-        """One optimizer step of ``mode`` on a batch of device tensors.
+        """One optimizer step of ``mode``'s net on a batch of device tensors.
         Returns its metrics as 0-d device tensors, with ``nancount``."""
         state = self.states[MODE_TO_NET[mode]]
         state.zero_grad()
-        loss, metrics = self.syn.extract_object_loss(
-            batch, it, is_img=mode.startswith("img"), generator=self.generator)
+        loss, metrics = self._loss(mode, batch, it, self.generator)
         loss.backward()
         state.apply(loss)
         metrics["nancount"] = state.nancount.clone()
@@ -104,9 +121,7 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_metrics(self, mode, batch, generator):
-        _, metrics = self.syn.extract_object_loss(batch, 0, is_img=mode.startswith("img"),
-                                                  generator=generator)
-        return metrics
+        return self._loss(mode, batch, 0, generator)[1]
 
     # -- loop --
 
@@ -118,7 +133,8 @@ class Trainer:
             fold_kw = dict(num_folds=cfg.data.num_folds_train, fold=cfg.data.init_fold_train)
         train_ds = create_dataset(cfg, phase="train", **fold_kw)
         self.train_loader = InfiniteLoader(
-            DataLoader(train_ds, cfg.batch_size_vid, shuffle=True, seed=cfg.seed))
+            DataLoader(train_ds, cfg.batch_size_vid, shuffle=True, seed=cfg.seed,
+                       num_workers=cfg.data.num_workers))
         eval_every = cfg.num_iter_eval
         self._best_vid = None
         start_iter = 0
@@ -128,27 +144,30 @@ class Trainer:
             start_iter = (it + 1) if it is not None else 0
 
         t_start = time.time()
-        for it in range(start_iter, num_iter):
-            beat(it)  # liveness signal for a supervisor's stall watchdog
-            log = (cfg.log_freq and it % cfg.log_freq == 0) or it < 10 or (
-                it < 1000 and it % 100 == 0)
-            for mode in self._train_modes:
-                batch = self._to_device(self.train_loader.next())
-                metrics = self.step(mode, batch, it)
-                # nancount is read only now and then: a read waits for the
-                # card. It resets only on a finite step, so a run of
-                # non-finite losses is still caught (and skipped meanwhile)
-                if (log or it % 25 == 0) and int(metrics["nancount"]) > 10:
-                    raise ValueError(f"loss NaN for >10 consecutive steps in {mode}")
-            if log:
-                print(f"Iteration {it:05d}/{num_iter:05d} ({time.time() - t_start:.1f}s)",
-                      flush=True)
-            if eval_every and it > 0 and it % eval_every == 0:
-                self.evaluate(it)
-            if cfg.save_latest_freq > 0 and it % cfg.save_latest_freq == 0:
-                self.save(it, name="latest")
-            if cfg.save_freq > 0 and it % cfg.save_freq == 0:
-                self.save(it)
+        try:
+            for it in range(start_iter, num_iter):
+                beat(it)  # liveness signal for a supervisor's stall watchdog
+                log = (cfg.log_freq and it % cfg.log_freq == 0) or it < 10 or (
+                    it < 1000 and it % 100 == 0)
+                for mode in self._train_modes:
+                    batch = self._to_device(self.train_loader.next())
+                    metrics = self.step(mode, batch, it)
+                    # nancount is read only now and then: a read waits for the
+                    # card. It resets only on a finite step, so a run of
+                    # non-finite losses is still caught (and skipped meanwhile)
+                    if (log or it % 25 == 0) and int(metrics["nancount"]) > 10:
+                        raise ValueError(f"loss NaN for >10 consecutive steps in {mode}")
+                if log:
+                    print(f"Iteration {it:05d}/{num_iter:05d} ({time.time() - t_start:.1f}s)",
+                          flush=True)
+                if eval_every and it > 0 and it % eval_every == 0:
+                    self.evaluate(it)
+                if cfg.save_latest_freq > 0 and it % cfg.save_latest_freq == 0:
+                    self.save(it, name="latest")
+                if cfg.save_freq > 0 and it % cfg.save_freq == 0:
+                    self.save(it)
+        finally:
+            self.train_loader.close()  # stops the producer thread
         self.save(num_iter - 1, name="latest")
         print("Training was successfully finished.")
 
@@ -159,7 +178,8 @@ class Trainer:
         cfg = self.cfg
         if self.valid_loader is None:
             ds = create_dataset(cfg, phase=cfg.data.eval_phase)
-            self.valid_loader = DataLoader(ds, cfg.batch_size_vid, shuffle=False)
+            self.valid_loader = DataLoader(ds, cfg.batch_size_vid, shuffle=False,
+                                           num_workers=cfg.data.num_workers)
         agg = {}
         generator = torch.Generator(device=self.device).manual_seed(0)
         for i, batch in enumerate(self.valid_loader):
