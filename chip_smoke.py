@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port (waldo_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--iters N] [--out results.json] [--profile DIR]
+    python3 chip_smoke.py --k1-stress REPS [--k1-cases N]
 
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
@@ -65,17 +66,39 @@ Phases, in order; any failure exits non-zero:
      sample and the pre-pass once a step, no backward: the decode runs
      under no_grad); the two samples against their plain versions on the
      inputs one step hands them, timed beside their bounds and
-     F.grid_sample.
+     F.grid_sample;
+ 10. test.sh and test_mat.sh (scripts/cityscapes/) through the test CLI,
+     waldo_tpu_torch.cli.test.main, on a Cityscapes-format tree written at
+     the scripts' geometry (3 sequences of 30 frames at 512x1024, labels,
+     flows at 128x256; Cityscapes itself is not in the repo), the three nets
+     restored from phases 7-9's runs: the slots restore equal, strict
+     launch counts (per predict K1 with its ghost mask and K2 at N=56 and
+     N=40, the pre-pass twice; test_mat.sh also bias_act once per MAT layer
+     per forward), every dump written (each real_vid dump equal to the
+     loader's frames through the dump format) and finite, the metrics
+     finite; ms per predict at B=1, per evaluator iteration (with its waits
+     on the loader and the dumps) and per MAT clip, peak memory; the
+     metrics CLI (waldo_tpu_torch.eval.metrics TAG 14 4) on the dumps, with
+     its LPIPS fallback; K1 with its mask, K2 and the pre-pass at 512x1024
+     on the inputs one predict hands them and on dense inputs, against
+     their plain versions and timed beside their bounds (K2 beside
+     F.grid_sample), with their inputs' share of zero samples; a small
+     float32 evaluator card vs CPU; K2's batch mode on the first of each
+     shape of the MAT warps test_mat.sh handed it, against its plain
+     version and timed beside its bound and F.grid_sample.
 Phases 7-9 also time the training loop's iterations (a batch from the
 prefetching loader, its copy, one step) with the script's loader workers
 and with one, beside the host's time to make one batch's clips.
-With --profile DIR, phases 4, 5, 7, 8 and 9 also trace one predict, one MAT
-clip, one training step of each net and one loop iteration of each with
-torch.profiler and write the device time per span and per kernel, and the
-device's idle share, to DIR/profile{,_mat,_train,_flp,_wif_*,*_iteration}
-.json and .txt.
+With --profile DIR, phases 4, 5, 7, 8, 9 and 10 also trace one predict, one
+MAT clip, one training step of each net, one loop iteration of each and one
+evaluator iteration with torch.profiler and write the device time per span
+and per kernel, and the device's idle share, to
+DIR/profile{,_mat,_train,_flp,_wif_*,*_iteration}.json and .txt.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
+With --k1-stress REPS only phase 1 runs, then phase 3's flagship cases of
+the fused warp REPS times each into outputs that start as NaN (k1_stress);
+the last line is its JSON summary.
 """
 from __future__ import annotations
 
@@ -116,6 +139,10 @@ SHARED_BWD_FIRST_SOURCE = "yardstick/grid_sample_shared_bwd_pr4.cu"
 TRAIN_SCRIPT = "scripts/cityscapes/train_lvd.sh"
 FLP_SCRIPT = "scripts/cityscapes/train_flp.sh"
 WIF_SCRIPT = "scripts/cityscapes/train_wif.sh"
+TEST_SCRIPT = "scripts/cityscapes/test.sh"
+TEST_MAT_SCRIPT = "scripts/cityscapes/test_mat.sh"
+EVAL_CLIPS = 3  # test.sh clips of phase 10, one a Cityscapes-format sequence
+EVAL_MAT_CLIPS = 2  # test_mat.sh clips of phase 10
 TRAIN_ITERS = 3  # Trainer.run iterations of each training phase
 TRAIN_TIMED = 5  # timed steps on one fixed batch
 LOADER_ITERS = 3  # timed loader iterations (batch, copy, step) per worker count
@@ -273,6 +300,63 @@ def k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype=None):
     return img, grid
 
 
+def write_cityscapes_tree(root, true_dim, flow_dim, n_seqs, n_frames=30, split="val",
+                          lyt_model="deeplabv3", flow_model="raft", num_cls=20, seed=0):
+    """A Cityscapes-format tree under ``root`` at true_dim x 2*true_dim, the
+    layout and flow trees beside it: ``n_seqs`` sequences of ``n_frames``
+    frames of smooth moving content (a drifting sinusoid texture over a
+    two-class ground, and 2-3 moving rectangles of other classes), labels as
+    8-bit PNGs of class ids below ``num_cls`` and .flo files at flow_dim x
+    2*flow_dim holding each frame's displacement from the frame before, in
+    the flow file's pixels (0 at the first frame). Returns the frame
+    folder."""
+    import PIL.Image
+    from waldo_tpu_torch.data import write_flo
+
+    h, w = true_dim, 2 * true_dim
+    fh, fw = flow_dim, 2 * flow_dim
+    sfx = "" if true_dim == 1024 else f"_{true_dim}"
+    dirs = {"rgb": f"leftImg8bit_sequence{sfx}", "lyt": f"leftImg8bit_sequence_{lyt_model}{sfx}",
+            "flow": f"leftImg8bit_sequence_{flow_model}_{flow_dim}"}
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    fy, fx = np.mgrid[0:fh, 0:fw].astype(np.float32)
+    for s in range(n_seqs):
+        rng = np.random.RandomState(seed + s)
+        freq = (rng.rand(4) * 0.05 + 0.01) * 512 / h
+        phase, slope, amp = rng.rand(4) * 6.28, rng.rand(4) * 2 - 1, rng.rand(4, 3) * 0.2
+        vel = rng.randn(2).astype(np.float32) * 0.004 * w  # background, px per frame
+        objs = [dict(c=rng.rand(2) * (w, h), v=rng.randn(2) * 0.006 * w,
+                     half=(rng.rand(2) * 0.08 + 0.04) * (w, h), rgb=rng.rand(3) * 255,
+                     cls=int(rng.randint(2, num_cls))) for _ in range(rng.randint(2, 4))]
+        name = f"smoke_{s:06d}"
+        for k in range(n_frames):
+            ox, oy = vel * k
+            tex = sum(amp[i] * np.sin(freq[i] * ((xx + ox) + slope[i] * (yy + oy))
+                                      + phase[i])[..., None] for i in range(4))
+            img = np.clip((0.5 + tex) * 255, 0, 255)
+            lab = np.where(yy > h * 0.55, 0, 1).astype(np.uint8)
+            fl = np.broadcast_to(-vel * fw / w, (fh, fw, 2)).copy()
+            for o in objs:
+                cx, cy = o["c"] + o["v"] * k
+                m = (np.abs(xx - cx) < o["half"][0]) & (np.abs(yy - cy) < o["half"][1])
+                img[m] = o["rgb"]
+                lab[m] = o["cls"]
+                mf = ((np.abs(fx * w / fw - cx) < o["half"][0])
+                      & (np.abs(fy * h / fh - cy) < o["half"][1]))
+                fl[mf] = -o["v"] * fw / w
+            stem = f"{name}_{k:06d}_leftImg8bit"
+            paths = {key: os.path.join(root, d, split, "smoke") for key, d in dirs.items()}
+            for p in paths.values():
+                os.makedirs(p, exist_ok=True)
+            PIL.Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(paths["rgb"], stem + ".png"), compress_level=1)
+            PIL.Image.fromarray(lab).save(os.path.join(paths["lyt"], stem + ".png"),
+                                          compress_level=1)
+            write_flo(os.path.join(paths["flow"], stem + ".flo"),
+                      fl if k > 0 else np.zeros_like(fl))
+    return os.path.join(root, dirs["rgb"])
+
+
 def jsonable(obj):
     """``obj`` with every dict key made a string (launch keys are tuples)."""
     if isinstance(obj, dict):
@@ -418,8 +502,17 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         e = max_err(got, want)
         log(f"warp_alpha_ctx {label}: max|err| {e:.3g} (tol {TOL_F32})")
-        check(e <= TOL_F32 and all(torch.isfinite(x).all() for x in got),
-              f"warp_alpha_ctx {label} disagrees: {e}")
+        ok = e <= TOL_F32 and all(torch.isfinite(x).all() for x in got)
+        if not ok:  # where it disagrees, and whether a second launch does too
+            for name, x, y in zip(("alpha_occ", "disocc", "flow"), got, want):
+                bad = ((x - y).abs() > TOL_F32) | ~torch.isfinite(x)
+                rows = bad.flatten(1).any(1).nonzero().flatten()
+                log(f"  {name}: {int(bad.sum())} elements over the tolerance in rows "
+                    f"{rows[:16].tolist()} of {x.shape[0]}; first at "
+                    f"{bad.nonzero()[:4].tolist()}")
+            log(f"  a second launch: max|err| "
+                f"{max_err(warp_alpha_ctx_cuda(a, g, o, io, tp, tcp), want):.3g}")
+        check(ok, f"warp_alpha_ctx {label} disagrees: {e}")
         return e
 
     def k1_case(label, f, h, w, c, tp, tc, with_io, sparse=False):
@@ -588,6 +681,88 @@ def flagship_batch(cfg, dev, seed=0):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
+def k1_stress(dev, reps, n_cases=8):
+    """Phase 3's first n_cases flagship cases of the fused warp (its
+    RandomState(0) inputs, made in its order), each run reps times, to tell
+    an output element the kernels never write from one they write wrong.
+    Each repetition: the pre-pass against its plain version (exactly); the
+    warp launched on those planes into outputs filled with NaN; and the
+    warp through its wrapper, after the cache is emptied and handed back
+    blocks of the outputs' sizes filled with NaN, so that the wrapper's
+    torch.empty outputs land in them (counted) and an unwritten element
+    reads NaN. Both warps are held to the plain version (1e-4). The first
+    repetition's first case is the process's first launch of both kernels.
+    Returns the counts, and the (repetition, case) of each failure."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import plane_boxes_plain, warp_alpha_ctx_plain
+    from waldo_tpu_torch.ops.kernels import WARP_ALPHA_CTX, plane_boxes_cuda, warp_alpha_ctx_cuda
+
+    rng = np.random.RandomState(0)
+    cases = []
+    for sparse in (False, True):
+        for tp in (14, 10):
+            for with_io in (False, True):
+                if len(cases) < n_cases:
+                    a, g, o, io = k1_inputs(rng, 4, 256, 512, 17, tp, 4, with_io, dev, sparse)
+                    cases.append((f"N={4 * tp}" + (" object-sparse" if sparse else " dense")
+                                  + (" is_obj" if with_io else ""), a, g, o, io, tp, 4 * tp,
+                                  warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=4 * tp),
+                                  plane_boxes_plain(a)))
+    nan = float("nan")
+
+    def poison(*tensors):  # free blocks of these sizes, filled with NaN; their addresses
+        blocks = [torch.full(t.shape, nan if t.is_floating_point() else -7, dtype=t.dtype,
+                             device=dev) for t in tensors]
+        return {b.data_ptr() for b in blocks}
+
+    def counts(got, want):  # (elements left unwritten, elements written wrong)
+        left = sum(torch.isnan(x).sum() for x in got)
+        wrong = sum((((x - y).abs() > TOL_F32) & ~torch.isnan(x)).sum() for x, y in zip(got, want))
+        return left, wrong
+
+    stats = torch.zeros(reps, len(cases), 5, dtype=torch.int64, device=dev)
+    reused = 0  # wrapper calls whose three outputs all landed in NaN blocks
+    t0 = time.perf_counter()
+    for r in range(reps):
+        for i, (_, a, g, o, io, tp, tcp, want, want_pre) in enumerate(cases):
+            poison(*want_pre)
+            planes, boxes = plane_boxes_cuda(a)
+            stats[r, i, 0] = (planes != want_pre[0]).sum() + (boxes != want_pre[1]).sum()
+            outs = [torch.full(x.shape, nan, device=dev) for x in want]
+            n, c, gh, gw = g.shape[:4]
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            WARP_ALPHA_CTX.launch(None, planes.data_ptr(), boxes.data_ptr(), g.data_ptr(),
+                                  o.data_ptr(), io.data_ptr() if io is not None else None,
+                                  *(x.data_ptr() for x in outs), a.shape[1], a.shape[2], c, n,
+                                  gh, gw, tp, tcp, stream)
+            stats[r, i, 1], stats[r, i, 2] = counts(outs, want)
+            del planes, boxes, outs
+            torch.cuda.empty_cache()  # so that the wrapper's allocations find the NaN blocks
+            nan_blocks = poison(*want, *want_pre)
+            got = warp_alpha_ctx_cuda(a, g, o, io, tp, tcp)
+            stats[r, i, 3], stats[r, i, 4] = counts(got, want)
+            reused += all(x.data_ptr() in nan_blocks for x in got)
+            del got
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stats = stats.cpu().numpy()
+    what = ["pre-pass elements differing", "warp into NaN: elements left unwritten",
+            "warp into NaN: elements written wrong", "warp's wrapper: NaN elements",
+            "warp's wrapper: elements wrong"]
+    res = {"reps": reps, "cases": [c[0] for c in cases], "seconds": secs,
+           "first_launch": dict(zip(what, stats[0, 0].tolist())),
+           "wrapper_outputs_in_nan_blocks": reused,
+           "failures": {w: [[int(r), cases[i][0], int(stats[r, i, k])]
+                            for r, i in zip(*np.nonzero(stats[..., k]))][:20]
+                        for k, w in enumerate(what)},
+           "calls_failing": {w: int((stats[..., k] > 0).sum()) for k, w in enumerate(what)}}
+    log(f"K1 stress: {reps} repetitions of {len(cases)} cases in {secs:.1f} s, "
+        f"{reps * len(cases)} calls of each kind ({reused} wrapper calls with all three "
+        f"outputs in NaN blocks); calls failing {res['calls_failing']}; the process's first "
+        f"launch {res['first_launch']}")
+    return res
+
+
 def small_cfg():
     from waldo_tpu_torch.config import Config, DataConfig, ModelConfig
 
@@ -723,7 +898,7 @@ def phase_main(dev, iters, profile_dir=None):
     log(f"predict: {ms:.2f} ms per call over {iters} calls -> {fps:.3f} predicted frames/s; "
         f"peak memory {peak_gb:.2f} GB")
     prof = phase_profile(lambda: syn.predict(batch), profile_dir, "") if profile_dir else None
-    k1_inputs_seen = capture_warp_inputs(syn, batch)
+    k1_inputs_seen = capture_sample_inputs(lambda: syn.predict(batch))[0]
     del out, syn
     torch.cuda.empty_cache()
 
@@ -741,24 +916,30 @@ def phase_main(dev, iters, profile_dir=None):
             "launches_by_key": by_key, "small_predict_err": err, "profile": prof}, k1_inputs_seen
 
 
-def capture_warp_inputs(syn, batch):
-    """The (alpha, grid, occ, is_obj, tp_sz, tcp) of every fused warp call
-    in one predict, copied, for phase 6 to time the kernel on them."""
+def capture_sample_inputs(predict):
+    """The inputs of every fused warp call (alpha, grid, occ, is_obj, tp_sz,
+    tcp) and every shared-grid sample (img, grid, tp_sz) in one
+    ``predict()``, copied, for the kernels to be timed on them."""
     from waldo_tpu_torch.models import warper
 
-    seen, fused = [], warper.warp_alpha_ctx
+    k1, k2 = [], []
+    fused, ctx = warper.warp_alpha_ctx, warper.grid_sample_ctx
 
-    def capturing(alpha, grids, occ, is_obj, *, tp_sz, tcp):
-        seen.append(tuple(None if t is None else t.float().contiguous().clone()
-                          for t in (alpha, grids, occ, is_obj)) + (tp_sz, tcp))
+    def capture_k1(alpha, grids, occ, is_obj, *, tp_sz, tcp):
+        k1.append(tuple(None if t is None else t.float().contiguous().clone()
+                        for t in (alpha, grids, occ, is_obj)) + (tp_sz, tcp))
         return fused(alpha, grids, occ, is_obj, tp_sz=tp_sz, tcp=tcp)
 
-    warper.warp_alpha_ctx = capturing
+    def capture_k2(img, grid, *, tp_sz):
+        k2.append((img.contiguous().clone(), grid.contiguous().clone(), tp_sz))
+        return ctx(img, grid, tp_sz=tp_sz)
+
+    warper.warp_alpha_ctx, warper.grid_sample_ctx = capture_k1, capture_k2
     try:
-        syn.predict(batch)
+        predict()
     finally:
-        warper.warp_alpha_ctx = fused
-    return seen
+        warper.warp_alpha_ctx, warper.grid_sample_ctx = fused, ctx
+    return k1, k2
 
 
 def mat_clip(cfg, syn, inpainter, batch):
@@ -940,38 +1121,124 @@ def phase_mat(dev, profile_dir=None):
             "small_chain_err": err, "small_chain_scale": scale, "profile": prof}
 
 
+def k1_row(card_name, label, a, g, o, mask, tp, tcp, n_launches, err):
+    """The fused warp timed beside its bound and its plain version."""
+    from waldo_tpu_torch.ops.grid_sample import warp_alpha_ctx_plain
+    from waldo_tpu_torch.ops.kernels import warp_alpha_ctx_cuda
+
+    f, h, w, c = a.shape
+    n, _, gh, gw, _ = g.shape
+    ms = cuda_time(lambda: warp_alpha_ctx_cuda(a, g, o, mask, tp, tcp), 20)
+    plain = cuda_time(lambda: warp_alpha_ctx_plain(a, g, o, mask, tp_sz=tp, tcp=tcp), 3)
+    p = gh * gw
+    nbytes = 4 * (f * h * w * c + n * c * p * 2 + n * c * c + n * p * (c + 3))
+    nops = n * p * (3 * c * c + 32 * c)
+    if mask is not None:  # the mask rows the launch reads, and a multiply per sample
+        nbytes += 4 * (n // tcp) * tp * c * p
+        nops += n * p * c
+    b_ms, b_by = bound(card_name, nbytes, nops)
+    return {"name": label, "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def k1_check(a, g, o, io, tp, tcp, whose):
+    """The fused warp against its plain version on these inputs; max|err|."""
+    from waldo_tpu_torch.ops.grid_sample import warp_alpha_ctx_plain
+    from waldo_tpu_torch.ops.kernels import warp_alpha_ctx_cuda
+
+    err = max_err(warp_alpha_ctx_cuda(a, g, o, io, tp, tcp),
+                  warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=tcp))
+    check(err <= TOL_F32, f"warp_alpha_ctx on {whose} inputs disagrees: {err}")
+    return err
+
+
+def k1_input_shares(a, g, io, tp, label):
+    """The share of zero (pixel, layer) samples of the fused warp's inputs
+    (the ghost mask not applied), and of samples the box test skips."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import (grid_sample_multigrid_plain, plane_boxes_plain,
+                                                 tap_footprint_skips)
+
+    n = g.shape[0]
+    _, boxes = plane_boxes_plain(a)
+    frame = torch.arange(n, device=a.device) // tp
+    skip = float(tap_footprint_skips(g, boxes[frame], a.shape[1], a.shape[2]).float().mean())
+    sam = grid_sample_multigrid_plain(a.repeat_interleave(tp, dim=0), g)
+    zero = float((sam == 0).float().mean())
+    zero_obj = float((sam[..., 1:] == 0).float().mean())
+    del sam
+    box_area = ((boxes[..., 1] - boxes[..., 0] + 1).clamp(min=0)
+                * (boxes[..., 3] - boxes[..., 2] + 1).clamp(min=0)).float()
+    box_share = float(box_area.mean()) / (a.shape[1] * a.shape[2])
+    log(f"{label}: zero samples {zero:.4f} of all (pixel, layer), {zero_obj:.4f} of the object "
+        f"layers'; the box test skips {skip:.4f}; boxes cover {box_share:.4f} of a plane on "
+        f"average")
+    return {"n": n, "zero_share": zero, "zero_share_objects": zero_obj, "skip_share": skip,
+            "box_share": box_share}
+
+
+def k2_row(card_name, label, img, grid, tp, n_launches, err):
+    """The shared-grid sampler timed beside its bound, its plain version and
+    F.grid_sample on the repeated texture."""
+    import torch.nn.functional as F
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda
+
+    f, h, w, c = img.shape
+    n, ho, wo, _ = grid.shape
+    ms = cuda_time(lambda: grid_sample_cuda(img, grid, tp), 20)
+    plain = cuda_time(lambda: grid_sample_ctx_plain(img, grid, tp), 3)
+    rep = img.repeat_interleave(tp, dim=0).permute(0, 3, 1, 2).contiguous()
+    lib = cuda_time(lambda: F.grid_sample(rep, grid, mode="bilinear", padding_mode="zeros",
+                                          align_corners=False), 20)
+    del rep
+    p = ho * wo
+    nbytes = 4 * (f * h * w * c + n * p * 2 + n * p * c)
+    b_ms, b_by = bound(card_name, nbytes, n * p * (16 + 8 * c))
+    return {"name": label, "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def plane_boxes_row(card_name, label, tex, n_launches):
+    """The pre-pass checked for equality and timed. Its ~0.03 ms at 256x512
+    is close to the host's cost of one wrapper call (checks, two
+    allocations, the launch), so the kernel is timed launched into outputs
+    made once, and the wrapper's time is logged beside it. One permute copy
+    (what the warp's wrapper did before) is logged as a yardstick: it
+    computes the planes but not the boxes."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import plane_boxes_plain
+    from waldo_tpu_torch.ops.kernels import PLANE_BOXES, plane_boxes_cuda
+
+    got = plane_boxes_cuda(tex)
+    want = plane_boxes_plain(tex)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, want)), f"{label} disagrees")
+    stream = torch.cuda.current_stream(tex.device).cuda_stream
+    ms = cuda_time(lambda: PLANE_BOXES.launch(None, tex.data_ptr(), got[0].data_ptr(),
+                                              got[1].data_ptr(), *tex.shape, 0, stream), 100)
+    wrapper_ms = cuda_time(lambda: plane_boxes_cuda(tex), 100)
+    plain = cuda_time(lambda: plane_boxes_plain(tex), 5)
+    copy_ms = cuda_time(lambda: tex.permute(0, 3, 1, 2).contiguous(), 100)
+    b_ms, b_by = bound(card_name, 2 * tex.numel() * 4 + want[1].numel() * 4, tex.numel())
+    log(f"{label}: through its wrapper {wrapper_ms:.4f} ms; permute copy alone {copy_ms:.4f} ms")
+    return {"name": label, "route": "cuda", "source": PRE_SOURCE, "replaces": PRE_REPLACES,
+            "launches": n_launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def phase_timings(dev, card_name, errs, by_key, mat_by_key, launches, k3_launches, k1_seen):
     import torch
-    import torch.nn.functional as F
     from waldo_tpu_torch.ops.bias_act import _ACTS, bias_act_plain
-    from waldo_tpu_torch.ops.grid_sample import (grid_sample_ctx_plain,
-                                                 grid_sample_multigrid_plain, plane_boxes_plain,
-                                                 tap_footprint_skips, warp_alpha_ctx_plain)
-    from waldo_tpu_torch.ops.kernels import (PLANE_BOXES, bias_act_cuda, grid_sample_cuda,
-                                             plane_boxes_cuda, warp_alpha_ctx_cuda)
+    from waldo_tpu_torch.ops.kernels import bias_act_cuda
 
     log("== 6. kernel timings at the main paths' shapes")
     bw, fp32 = card_rates(card_name)
     log(f"bounds at {bw / 1e12:.2f} TB/s and {fp32 / 1e12:.0f} TFLOP/s float32 ({card_name})")
     rng = np.random.RandomState(1)
     rows = []
-
-    def k1_row(label, a, g, o, mask, tp, tcp, n_launches, err):
-        f, h, w, c = a.shape
-        n, _, gh, gw, _ = g.shape
-        ms = cuda_time(lambda: warp_alpha_ctx_cuda(a, g, o, mask, tp, tcp), 20)
-        plain = cuda_time(lambda: warp_alpha_ctx_plain(a, g, o, mask, tp_sz=tp, tcp=tcp), 3)
-        p = gh * gw
-        nbytes = 4 * (f * h * w * c + n * c * p * 2 + n * c * c + n * p * (c + 3))
-        nops = n * p * (3 * c * c + 32 * c)
-        if mask is not None:  # the mask rows the launch reads, and a multiply per sample
-            nbytes += 4 * (n // tcp) * tp * c * p
-            nops += n * p * c
-        b_ms, b_by = bound(card_name, nbytes, nops)
-        rows.append({"name": label, "route": "cuda", "source": K1_SOURCE,
-                     "replaces": K1_REPLACES, "launches": n_launches, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
 
     for tp in (14, 10):
         f, h, w, c, tc = 4, 256, 512, 17, 4
@@ -983,26 +1250,18 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, launches, k3_launche
             a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, True, dev, sparse)
             for mask, n_launches in ((None, by_key["warp_alpha_ctx"][n, False]),
                                      (io, mat_by_key["warp_alpha_ctx"][n, True])):
-                k1_row(f"warp_alpha_ctx N={n}" + (" object-sparse" if sparse else "")
-                       + ("" if mask is None else " is_obj"), a, g, o, mask, tp, tc * tp,
-                       n_launches, errs["warp_alpha_ctx", n, mask is not None, sparse])
+                rows.append(k1_row(card_name, f"warp_alpha_ctx N={n}"
+                                   + (" object-sparse" if sparse else "")
+                                   + ("" if mask is None else " is_obj"), a, g, o, mask, tp,
+                                   tc * tp, n_launches,
+                                   errs["warp_alpha_ctx", n, mask is not None, sparse]))
             del a, g, o, io
             torch.cuda.empty_cache()
 
-        c = 23
-        img, grid = k2_inputs(rng, f, h, w, c, tp, h, w, dev)
-        ms = cuda_time(lambda: grid_sample_cuda(img, grid, tp), 20)
-        plain = cuda_time(lambda: grid_sample_ctx_plain(img, grid, tp), 3)
-        rep = img.repeat_interleave(tp, dim=0).permute(0, 3, 1, 2).contiguous()
-        lib = cuda_time(lambda: F.grid_sample(rep, grid, mode="bilinear", padding_mode="zeros",
-                                              align_corners=False), 20)
-        nbytes = 4 * (f * p * c + n * p * 2 + n * p * c)
-        b_ms, b_by = bound(card_name, nbytes, n * p * (16 + 8 * c))
-        rows.append({"name": f"grid_sample_ctx N={n}", "route": "cuda", "source": K2_SOURCE,
-                     "replaces": K2_REPLACES, "launches": by_key["grid_sample"][n],
-                     "max_abs_err": errs["grid_sample", n], "ms": ms, "plain_ms": plain,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
-        del img, grid, rep
+        img, grid = k2_inputs(rng, f, h, w, 23, tp, h, w, dev)
+        rows.append(k2_row(card_name, f"grid_sample_ctx N={n}", img, grid, tp,
+                           by_key["grid_sample"][n], errs["grid_sample", n]))
+        del img, grid
         torch.cuda.empty_cache()
 
     # the warp on the exact inputs the flagship predict handed it, with
@@ -1010,55 +1269,20 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, launches, k3_launche
     # test skips
     zero_shares = []
     for a, g, o, io, tp, tcp in k1_seen:
-        n, c, gh, gw, _ = g.shape
-        got = warp_alpha_ctx_cuda(a, g, o, io, tp, tcp)
-        err = max_err(got, warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=tcp))
-        check(err <= TOL_F32, f"warp_alpha_ctx on the flagship predict's inputs disagrees: {err}")
-        del got
-        _, boxes = plane_boxes_plain(a)
-        frame = torch.arange(n, device=dev) // tp
-        skip = float(tap_footprint_skips(g, boxes[frame], a.shape[1], a.shape[2]).float().mean())
-        sam = grid_sample_multigrid_plain(a.repeat_interleave(tp, dim=0), g)
-        zero = float((sam == 0).float().mean())
-        zero_obj = float((sam[..., 1:] == 0).float().mean())
-        del sam
-        box_area = ((boxes[..., 1] - boxes[..., 0] + 1).clamp(min=0)
-                    * (boxes[..., 3] - boxes[..., 2] + 1).clamp(min=0)).float()
-        box_share = float(box_area.mean()) / (a.shape[1] * a.shape[2])
-        log(f"warp_alpha_ctx N={n} on the flagship predict's inputs: max|err| {err:.3g}; zero "
-            f"samples {zero:.4f} of all (pixel, layer), {zero_obj:.4f} of the object layers'; "
-            f"the box test skips {skip:.4f}; boxes cover {box_share:.4f} of a plane on average")
-        zero_shares.append({"n": n, "zero_share": zero, "zero_share_objects": zero_obj,
-                            "skip_share": skip})
-        k1_row(f"warp_alpha_ctx N={n} flagship inputs" + ("" if io is None else " is_obj"),
-               a, g, o, io, tp, tcp, by_key["warp_alpha_ctx"][n, io is not None], err)
+        n = g.shape[0]
+        err = k1_check(a, g, o, io, tp, tcp, "the flagship predict's")
+        zero_shares.append(k1_input_shares(a, g, io, tp, f"warp_alpha_ctx N={n} on the "
+                                                         f"flagship predict's inputs"))
+        rows.append(k1_row(card_name, f"warp_alpha_ctx N={n} flagship inputs"
+                           + ("" if io is None else " is_obj"), a, g, o, io, tp, tcp,
+                           by_key["warp_alpha_ctx"][n, io is not None], err))
         torch.cuda.empty_cache()
 
-    # the pre-pass alone, on the flagship warp's texture shape. Its ~0.03 ms
-    # on the card is close to the host's cost of one wrapper call (checks,
-    # two allocations, the launch), so the kernel is timed launched into
-    # outputs made once, and the wrapper's time is logged beside it. One
-    # permute copy (what the warp's wrapper did before) is logged as a
-    # yardstick: it computes the planes but not the boxes.
+    # the pre-pass alone, on the flagship warp's texture shape
     tex = sparse_alpha(rng, 4, 256, 512, 17, dev)
-    got = plane_boxes_cuda(tex)
-    want = plane_boxes_plain(tex)
-    torch.cuda.synchronize()
-    check(all(torch.equal(x, y) for x, y in zip(got, want)), "plane_boxes disagrees")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = cuda_time(lambda: PLANE_BOXES.launch(None, tex.data_ptr(), got[0].data_ptr(),
-                                              got[1].data_ptr(), *tex.shape, 0, stream), 100)
-    wrapper_ms = cuda_time(lambda: plane_boxes_cuda(tex), 100)
-    plain = cuda_time(lambda: plane_boxes_plain(tex), 5)
-    copy_ms = cuda_time(lambda: tex.permute(0, 3, 1, 2).contiguous(), 100)
-    b_ms, b_by = bound(card_name, 2 * tex.numel() * 4 + want[1].numel() * 4, tex.numel())
-    log(f"plane_boxes 4x256x512x17: through its wrapper {wrapper_ms:.4f} ms; permute copy "
-        f"alone {copy_ms:.4f} ms")
-    rows.append({"name": "plane_boxes 4x256x512x17", "route": "cuda", "source": PRE_SOURCE,
-                 "replaces": PRE_REPLACES, "launches": launches["plane_boxes"],
-                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": None})
-    del tex, got, want
+    rows.append(plane_boxes_row(card_name, "plane_boxes 4x256x512x17", tex,
+                                launches["plane_boxes"]))
+    del tex
 
     # bias_act at MAT's largest call; no single PyTorch call adds a bias,
     # activates, scales and clamps
@@ -1827,7 +2051,7 @@ def loader_timing(tr, mode, step_ms, profile_dir=None, label=""):
     cfg, b = tr.cfg, tr.cfg.batch_size_vid
     ds = create_dataset(cfg, phase="train")
     t0 = time.perf_counter()
-    collate([ds.make_clip(i, ds.clip_seed(i)) for i in range(b)])
+    collate([ds.make_clip(i, ds.draw(i)) for i in range(b)])
     res = {"clip_s_per_batch": time.perf_counter() - t0, "step_ms": step_ms}
 
     def in_thread(ds):
@@ -2045,7 +2269,7 @@ def phase_flp(dev, card_name, root, lvd_dir, profile_dir=None):
     check(not any(res["launches_per_step"].values()), "an FLP step launched a kernel")
     del batch
     res["loader"] = loader_timing(tr, mode, res["ms_per_step"], profile_dir, "_flp")
-    res.update(run_seconds=run_s, launches_run=launches)
+    res.update(run_seconds=run_s, launches_run=launches, checkpoint_path=tr.cfg.checkpoint_path)
     del tr
     torch.cuda.empty_cache()
     # FLP's loss runs no warp, so no inversion: random pose heads on both
@@ -2295,7 +2519,8 @@ def phase_wif(dev, card_name, root, lvd_dir, profile_dir=None):
             check(all(v == (1 if k in ("grid_sample", "grid_sample_per_channel", "plane_boxes")
                             else 0) for k, v in r["launches_per_step"].items()),
                   f"launches in one WIF step: {r['launches_per_step']}")
-            r.update(run_seconds=run_s, launches_run=launches)
+            r.update(run_seconds=run_s, launches_run=launches,
+                     checkpoint_path=tr.cfg.checkpoint_path)
             if variant == "l1":
                 pc_inputs, batch_inputs = capture_wif_sample_inputs(tr, mode, batch)
                 del batch
@@ -2324,6 +2549,530 @@ def phase_wif(dev, card_name, root, lvd_dir, profile_dir=None):
     return res, rows
 
 
+# ---------------------------------------------------------------------------
+# test.sh and test_mat.sh through the test CLI (phase 10)
+# ---------------------------------------------------------------------------
+
+
+def eval_script_flags(path=TEST_SCRIPT):
+    """The flags an inference script (scripts/cityscapes/test.sh by default)
+    hands the test CLI, with the run tags left as the words LVD_TAG, FLP_TAG
+    and WIF_TAG and without the pass-through arguments; a script that runs
+    a sibling script with the three tags (test_mat.sh, demo.sh) gives the
+    sibling's flags, then its own."""
+    import re
+    import shlex
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, path)) as fh:
+        text = fh.read().replace("\\\n", " ")
+    for tag in ("LVD_TAG", "FLP_TAG", "WIF_TAG"):
+        text = text.replace("${%s}" % tag, tag)
+    for line in text.splitlines():
+        if "cli.test" in line:
+            return [a for a in shlex.split(line.split("cli.test", 1)[1]) if a != "${@:4}"]
+        sibling = re.search(r'/(\w+\.sh)"', line)
+        if sibling and line.lstrip().startswith("bash"):
+            args = shlex.split(line[sibling.end():])[3:]  # after the three tags
+            return (eval_script_flags(os.path.join(os.path.dirname(path), sibling.group(1)))
+                    + [a for a in args if a != "${@:4}"])
+    raise RuntimeError(f"no test command in {path}")
+
+
+def dumped_frames(fmt, frames):
+    """What a dump of ``frames`` (T, H, W, 3) in [-1, 1] decodes to in the
+    format the evaluator wrote it: the uint8 frames in a PNG folder, their
+    round trip through Pillow's JPEG codec at the writer's quality in an
+    MJPG .avi."""
+    import inspect
+    import io
+
+    import PIL.Image
+    from waldo_tpu_torch.data import write_mjpeg_avi
+
+    u8 = ((np.clip(frames, -1, 1) + 1) / 2 * 255).astype(np.uint8)
+    if fmt == "png":
+        return u8
+    check(fmt == "avi", f"no decoder model for dumps written as {fmt}")
+    quality = inspect.signature(write_mjpeg_avi).parameters["quality"].default
+    out = []
+    for fr in u8:
+        buf = io.BytesIO()
+        PIL.Image.fromarray(fr).save(buf, format="JPEG", quality=quality)
+        out.append(np.asarray(PIL.Image.open(io.BytesIO(buf.getvalue())).convert("RGB")))
+    return np.stack(out)
+
+
+class recording_evaluators:
+    """Within it, the test CLI's evaluators are kept in ``made`` as they
+    are made, every video an evaluator dumps is checked finite (into
+    ``finite``) before it is encoded, and the MAT post-processing's warps
+    that fall in the sampler kernel's envelope are counted by their rows
+    (``mat_kernel_samples``) and by their shapes and dtype
+    (``mat_kernel_shapes``), with a copy of the first (texture, grid) of
+    each shape as the kernel was handed it (``mat_kernel_inputs``)."""
+
+    def __enter__(self):
+        import collections
+
+        import waldo_tpu_torch.cli.test as cli_test
+        import waldo_tpu_torch.models.mat_pipeline as mat_pipeline
+        import waldo_tpu_torch.train.evaluator as evaluator
+        from waldo_tpu_torch.ops.grid_sample import in_kernel_envelope
+
+        self.made, self.finite = [], []
+        self.mat_kernel_samples = collections.Counter()
+        self.mat_kernel_shapes = collections.Counter()
+        self.mat_kernel_inputs = {}
+        self._mods = cli_test, evaluator, mat_pipeline
+        self._orig = cli_test.Evaluator, evaluator.save_video_frames, mat_pipeline.grid_sample
+
+        def make(*args, **kwargs):
+            self.made.append(self._orig[0](*args, **kwargs))
+            return self.made[-1]
+
+        def save(vid, path, fps=4):
+            self.finite.append(bool(np.isfinite(vid).all()))
+            return self._orig[1](vid, path, fps=fps)
+
+        def sample(img, grid):
+            if img.is_cuda and in_kernel_envelope(img.shape, grid.shape):
+                self.mat_kernel_samples[grid.shape[0]] += 1
+                key = (tuple(img.shape), tuple(grid.shape), str(img.dtype))
+                self.mat_kernel_shapes[key] += 1
+                if key not in self.mat_kernel_inputs:
+                    self.mat_kernel_inputs[key] = (img.contiguous().clone(),
+                                                   grid.float().contiguous().clone())
+            return self._orig[2](img, grid)
+
+        cli_test.Evaluator, evaluator.save_video_frames, mat_pipeline.grid_sample = (
+            make, save, sample)
+        return self
+
+    def __exit__(self, *exc):
+        (self._mods[0].Evaluator, self._mods[1].save_video_frames,
+         self._mods[2].grid_sample) = self._orig
+
+
+def run_test_cli(flags, label):
+    """``waldo_tpu_torch.cli.test.main(flags)`` with the launch counts set to
+    0 just before and read just after; returns (metrics, evaluator,
+    seconds, launches, launches by key, peak GB, the MAT warps in the
+    sampler kernel's envelope by rows, and by shape with the first inputs
+    of each)."""
+    import torch
+    import waldo_tpu_torch.cli.test as cli_test
+    from waldo_tpu_torch.ops.kernels import reset_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_evaluators() as rec:
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = cli_test.main(list(flags))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, by_key = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(rec.made) == 1, f"{label}: the CLI made {len(rec.made)} evaluators")
+    ev = rec.made[0]
+    log(f"{label} through the CLI: {run_s:.1f} s (evaluator set-up and {len(ev.iteration_times)} "
+        f"clips); launches {launches} by key {by_key}; peak memory {peak_gb:.2f} GB; "
+        f"dumps written as {ev.dump_format}")
+    check(bool(rec.finite) and all(rec.finite), f"{label}: a dumped video is not finite")
+    check(all(np.isfinite(v) for v in metrics.values()), f"{label}: metrics {metrics}")
+    mat_inputs = {k: (n, *rec.mat_kernel_inputs[k]) for k, n in rec.mat_kernel_shapes.items()}
+    return (metrics, ev, run_s, launches, by_key, peak_gb, dict(rec.mat_kernel_samples),
+            mat_inputs)
+
+
+def check_eval_launches(label, launches, by_key, n, k3=0, mat_samples=None):
+    """n predicts' strict launch counts: K1 with its ghost mask at N=56 and
+    N=40, K2 at N=56 and N=40 (and in batch mode once for each MAT warp in
+    its envelope, by rows), the pre-pass twice, bias_act k3 times, no
+    training kernel."""
+    import collections
+
+    k2 = collections.Counter({56: n, 40: n}) + collections.Counter(mat_samples or {})
+    check(by_key["warp_alpha_ctx"] == {(56, True): n, (40, True): n}
+          and by_key["grid_sample"] == dict(k2) and by_key["plane_boxes"] == {4: 2 * n}
+          and launches["bias_act"] == k3
+          and not any(launches[k] for k in ("grid_sample_per_channel", "grid_sample_bwd",
+                                            "grid_sample_per_channel_bwd")),
+          f"{label}: expected per predict K1 with its ghost mask at N=56 and N=40, K2 at N=56 "
+          f"and N=40 and the pre-pass twice ({n} predicts, {k3} bias_act launches), got "
+          f"{launches} by key {by_key}")
+
+
+def eval_timing(ev):
+    """Host ms of the evaluator's iterations after the first (a warm-up):
+    the iteration, and its waits on the loader and on the dumps."""
+    its = ev.iteration_times[1:] or ev.iteration_times
+    mean = lambda k: 1e3 * sum(t[k] for t in its) / len(its)
+    res = {"iteration_ms": mean("loader_s") + mean("predict_s") + mean("dump_s"),
+           "loader_wait_ms": mean("loader_s"), "predict_ms": mean("predict_s"),
+           "dump_ms": mean("dump_s"), "iterations": len(its),
+           "first_iteration_ms": 1e3 * sum(ev.iteration_times[0].values())}
+    log(f"evaluator iteration: {res['iteration_ms']:.1f} ms over {len(its)} (waiting on the "
+        f"loader {res['loader_wait_ms']:.1f} ms, copy + predict + metrics + copy back "
+        f"{res['predict_ms']:.1f} ms, dumps {res['dump_ms']:.1f} ms); the first "
+        f"{res['first_iteration_ms']:.1f} ms")
+    return res
+
+
+def check_dumps(cfg, ev, n):
+    """Every dump of n clips is written, and each real_vid dump decodes to
+    the loader's frames in the dump format's round trip."""
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.eval.metrics import load_video
+    from waldo_tpu_torch.train.evaluator import DUMPS
+
+    ext = {"avi": ".avi", "png": "", "mp4": ".mp4"}[ev.dump_format]
+    for name in DUMPS:
+        got = sorted(os.listdir(os.path.join(cfg.result_path, name)))
+        check(got == [f"vid_{i:05d}{ext}" for i in range(n)], f"{name} dumps: {got}")
+    ds = create_dataset(cfg, phase=cfg.data.eval_phase)
+    for i in range(n):
+        want = dumped_frames(ev.dump_format, ds[i]["vid"])
+        path = os.path.join(cfg.result_path, "real_vid", f"vid_{i:05d}{ext}")
+        got = np.rint(load_video(path) * 255).astype(np.uint8)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"real_vid dump {i} differs from the loader's frames beyond the "
+              f"{ev.dump_format} round trip")
+    log(f"{len(DUMPS)} x {n} dumps written; each real_vid dump equals the loader's frames "
+        f"through the {ev.dump_format} round trip")
+
+
+def eval_kernel_rows(dev, card_name, launches, by_key, k1_seen, k2_seen):
+    """K1 with its ghost mask, K2 and the pre-pass at test.sh's 512x1024
+    load, on the inputs one predict handed them (emptying the two lists)
+    and on dense inputs: each against its plain version and timed beside
+    its bound (K2 also beside F.grid_sample), with the share of zero
+    samples in its inputs."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda
+
+    rows, shares = [], []
+
+    def k2_check(img, grid, tp, what):
+        got = grid_sample_cuda(img, grid, tp)
+        want = grid_sample_ctx_plain(img, grid, tp)
+        err = float((got - want).abs().max())
+        check(err <= TOL_F32, f"grid_sample_ctx on {what} disagrees: {err}")
+        zero = float((want == 0).float().mean())
+        log(f"grid_sample_ctx N={grid.shape[0]} on {what}: max|err| {err:.3g}; zero samples "
+            f"{zero:.4f}")
+        shares.append({"n": grid.shape[0], "k2_zero_share": zero, "inputs": what})
+        return err
+
+    while k1_seen:
+        a, g, o, io, tp, tcp = k1_seen.pop(0)
+        n = g.shape[0]
+        err = k1_check(a, g, o, io, tp, tcp, "test.sh's")
+        shares.append(dict(k1_input_shares(a, g, io, tp, f"warp_alpha_ctx N={n} on test.sh's "
+                                                         f"inputs"), inputs="test.sh"))
+        rows.append(k1_row(card_name, f"warp_alpha_ctx N={n} is_obj 512x1024 test.sh inputs",
+                           a, g, o, io, tp, tcp, by_key["warp_alpha_ctx"][n, True], err))
+        if not k1_seen:
+            rows.append(plane_boxes_row(card_name, "plane_boxes 4x512x1024x17 test.sh inputs",
+                                        a, launches["plane_boxes"]))
+        del a, g, o, io
+        torch.cuda.empty_cache()
+    while k2_seen:
+        img, grid, tp = k2_seen.pop(0)
+        n = grid.shape[0]
+        err = k2_check(img, grid, tp, "test.sh's inputs")
+        rows.append(k2_row(card_name, f"grid_sample_ctx N={n} 512x1024 test.sh inputs", img,
+                           grid, tp, by_key["grid_sample"][n], err))
+        del img, grid
+        torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(3)
+    f, h, w, c, tc = 4, 512, 1024, 17, 4
+    for tp in (14, 10):
+        n = f * tp
+        a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, True, dev)
+        err = k1_check(a, g, o, io, tp, tc * tp, "dense HD")
+        shares.append(dict(k1_input_shares(a, g, io, tp, f"warp_alpha_ctx N={n} on dense HD "
+                                                         f"inputs"), inputs="dense"))
+        rows.append(k1_row(card_name, f"warp_alpha_ctx N={n} is_obj 512x1024", a, g, o, io, tp,
+                           tc * tp, by_key["warp_alpha_ctx"][n, True], err))
+        del a, g, o, io
+        torch.cuda.empty_cache()
+        img, grid = k2_inputs(rng, f, h, w, 23, tp, h, w, dev)
+        err = k2_check(img, grid, tp, "dense HD inputs")
+        rows.append(k2_row(card_name, f"grid_sample_ctx N={n} 512x1024", img, grid, tp,
+                           by_key["grid_sample"][n], err))
+        del img, grid
+        torch.cuda.empty_cache()
+    tex = sparse_alpha(rng, f, h, w, c, dev)
+    rows.append(plane_boxes_row(card_name, "plane_boxes 4x512x1024x17", tex,
+                                launches["plane_boxes"]))
+    del tex
+    torch.cuda.empty_cache()
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
+            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms")
+    return rows, shares
+
+
+def mat_warp_rows(card_name, mat_inputs):
+    """K2's batch mode on the MAT post-processing's whole-frame warps of
+    test_mat.sh at 512x1024, one row for each shape the CLI run handed it:
+    on the first inputs of that shape, against its plain version, timed
+    beside its bound (the texels the grid's taps reach) and one
+    F.grid_sample call; its launches are the run's of that shape."""
+    import torch
+    import torch.nn.functional as F
+    from waldo_tpu_torch.ops.grid_sample import _grid_sample_kernel, grid_sample_plain
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda
+
+    rows, seen = [], []
+    with torch.inference_mode():  # as the MAT path runs, and its copies were made
+        for (img_shape, grid_shape, dtype), (n, img, grid) in sorted(mat_inputs.items()):
+            f, h, w, c = img.shape
+            p = grid.shape[1] * grid.shape[2]
+            tol = TOL_F32 if img.dtype == torch.float32 else TOL_BF16
+            out = _grid_sample_kernel(img, grid, 1)
+            want = grid_sample_plain(img, grid)
+            err = float((out.float() - want.float()).abs().max())
+            zero = float((want == 0).float().mean())
+            log(f"K2 batch mode on test_mat.sh's MAT warp: texture {img_shape} {dtype}, grid "
+                f"{grid_shape}, {n} launches in the run; max|err| {err:.3g} (tol {tol}); "
+                f"{zero:.4g} of the samples are 0")
+            check(bool(torch.isfinite(out).all()) and err <= tol,
+                  f"K2 batch mode on test_mat.sh's MAT warp {img_shape} {dtype}: {err}")
+            seen.append({"texture": img_shape, "grid": grid_shape, "dtype": dtype,
+                         "launches": n, "max_abs_err": err, "zero_share": zero})
+            del out, want
+            img_nchw = img.permute(0, 3, 1, 2).float().contiguous()
+            timed = dict(
+                ms=cuda_time(lambda: grid_sample_cuda(img, grid, 1), 20),
+                plain_ms=cuda_time(lambda: grid_sample_plain(img, grid), 5),
+                library_ms=cuda_time(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
+                                                           padding_mode="zeros",
+                                                           align_corners=False), 20))
+            texels = tapped_texels(grid, h, w) * c
+            b = bound(card_name, img.element_size() * (texels + f * p * c) + 8 * f * p,
+                      f * p * (16 + 8 * c))
+            rows.append({"name": f"grid_sample batch mode MAT warp {f}x{h}x{w} C={c} "
+                                 f"{dtype.replace('torch.', '')} test_mat.sh inputs",
+                         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+                         "launches": n, "max_abs_err": err, **timed, "bound_ms": b[0],
+                         "bound_by": b[1], "texels_read_share": texels / (f * h * w * c)})
+            del img_nchw
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
+            f"F.grid_sample {r['library_ms']:.4f} ms")
+    return rows, seen
+
+
+def small_eval_check(dev, root):
+    """A small float32 evaluator on the card against the same evaluator on
+    the CPU: small_cfg() on a Cityscapes-format tree at 64x128 (flows at
+    32x64), its two clips, the same seeded weights on both sides. The
+    videos of a clip agree within the float32 predict tolerance (1e-3) and
+    so do the metrics (L1 and SSIM absolute, PSNR relative)."""
+    import torch
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.train import Evaluator
+
+    data_root = os.path.join(root, "cityscapes_small")
+    write_cityscapes_tree(data_root, 64, 32, 2, num_cls=6)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        cfg = small_cfg()
+        cfg.data.dataset, cfg.data.dataroot, cfg.data.eval_phase = "cityscapes", data_root, "test"
+        cfg.data.skip_first, cfg.data.num_workers = True, 2
+        cfg.true_dim, cfg.flow_dim = 64, 32
+        cfg.model.restrict_to_ctx = True
+        cfg.save_path, cfg.name, cfg.datetime = root, "small_eval", f"small_{d.type}"
+        ev = Evaluator(cfg, device=d)
+        metrics = ev.run(dump=False)
+        clip = create_dataset(cfg, phase="test")[0]
+        batch = {k: torch.from_numpy(v[None]).to(d) for k, v in clip.items()
+                 if isinstance(v, np.ndarray)}
+        outs.append((metrics, {k: v.float().cpu() for k, v in ev.predict(batch).items()}))
+    (m_card, v_card), (m_cpu, v_cpu) = outs
+    err = max(float((v_card[k] - v_cpu[k]).abs().max()) for k in v_cpu)
+    m_err = {k: abs(m_card[k] - m_cpu[k]) / (abs(m_cpu[k]) if k.startswith("psnr") else 1.0)
+             for k in m_cpu}
+    log(f"small float32 evaluator (2 clips), card vs CPU: videos max|err| {err:.3g} (tol 1e-3); "
+        f"metrics max diff {max(m_err.values()):.3g} (tol 1e-3; PSNR relative)")
+    check(set(m_card) == set(m_cpu) and err <= 1e-3 and max(m_err.values()) <= 1e-3,
+          f"the small evaluator on the card disagrees with the CPU: {err}, {m_err}")
+    return {"video_err": err, "metric_errs": m_err, "metrics_card": m_card, "metrics_cpu": m_cpu}
+
+
+def phase_eval(dev, card_name, root, runs, mat_per_forward, profile_dir=None):
+    """scripts/cityscapes/test.sh, and test_mat.sh, through the test CLI
+    (``waldo_tpu_torch.cli.test.main``) on a Cityscapes-format tree written
+    at the scripts' geometry, restoring the three nets from phases 7-9's
+    runs, as ``test.sh LVD_TAG FLP_TAG WIF_TAG`` does after the training
+    scripts: the slots restore equal, strict launch counts, the dumps
+    written and equal to the loader's frames through the dump format, the
+    metrics finite; ms per predict, per evaluator iteration and per MAT
+    clip; the metrics CLI on the dumps; K1 with its ghost mask, K2 and the
+    pre-pass at 512x1024 against their plain versions and timed; a small
+    evaluator card vs CPU."""
+    import contextlib
+    import io
+
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.convert import to_jax
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.eval import metrics as metrics_cli
+    from waldo_tpu_torch.ops.kernels import reset_launches
+    from waldo_tpu_torch.train import CheckpointManager
+    from waldo_tpu_torch.train.checkpoint import _flatten
+
+    log(f"== 10. {TEST_SCRIPT} and {TEST_MAT_SCRIPT} through the test CLI on a "
+        f"Cityscapes-format tree")
+    t_phase = time.perf_counter()
+    res = {}
+    data_root = os.path.join(root, "cityscapes")
+    t0 = time.perf_counter()
+    write_cityscapes_tree(data_root, 512, 128, EVAL_CLIPS)
+    log(f"wrote {EVAL_CLIPS} sequences of 30 frames at 512x1024 (labels, flows at 128x256) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    loads = ["--s_load_path", runs["lvd"], "--s_pg_load_path", runs["flp"],
+             "--s_ii_load_path", runs["wif"]]
+    flags = eval_script_flags() + ["--data.dataroot", data_root, "--save_path", root,
+                                   "--datetime", "smoke"] + loads
+    cfg = parse_cli(list(flags))
+    m = cfg.model
+    shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.load_dim, cfg.true_dim,
+             cfg.flow_dim, m.embed_dim, m.num_obj, m.ctx_len, cfg.data.num_workers)
+    log(f"config (B, T, dim, load, true, flow, embed, objects, ctx, workers): {shape}; compute "
+        f"{cfg.compute_dtype}, sample_precision {m.sample_precision!r}, fast_inverse_warp "
+        f"{m.fast_inverse_warp}, restrict_to_ctx {m.restrict_to_ctx}, eval_phase "
+        f"{cfg.data.eval_phase}")
+    check(shape == (1, 14, 128, 512, 512, 128, 512, 16, 4, 8) and m.restrict_to_ctx
+          and cfg.data.eval_phase == "test" and cfg.data.dataset == "cityscapes"
+          and (m.load_path, m.pg_load_path, m.ii_load_path) == (runs["lvd"], runs["flp"],
+                                                                 runs["wif"]),
+          "the parsed test.sh config is not the expected one")
+
+    metrics, ev, run_s, launches, by_key, peak_gb, mat_samples, _ = run_test_cli(flags,
+                                                                                 "test.sh")
+    check(not mat_samples, f"test.sh ran a MAT warp: {mat_samples}")
+    check_eval_launches("test.sh", launches, by_key, EVAL_CLIPS)
+    trees = to_jax(ev.syn)
+    for label, key in (("pe", "lvd"), ("pg", "flp"), ("ii", "wif")):
+        want = _flatten(CheckpointManager(runs[key]).restore(label, trees[label], "latest",
+                                                             strict=True))
+        now = _flatten(trees[label])
+        check(set(now) == set(want) and all(np.array_equal(now[k], want[k]) for k in want),
+              f"the evaluator's {label} did not restore equal to the {key} run's slot")
+    log("pe, pg and ii restored equal to the LVD, FLP and WIF runs' latest slots")
+    want_keys = {f"{s}_{k}" for s in ("l1", "psnr", "ssim")
+                 for k in ("pred", "rec", "inp_pred", "inp_rec")}
+    check(set(metrics) == want_keys, f"metrics {sorted(metrics)}")
+    log("metrics: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+    check_dumps(cfg, ev, EVAL_CLIPS)
+    res["test_sh"] = {"metrics": metrics, "run_s": run_s, "launches": launches,
+                      "launches_by_key": by_key, "peak_gb": peak_gb,
+                      "dump_format": ev.dump_format, "iterations": eval_timing(ev)}
+
+    # one predict at B=1 on the first clip: strict counts, CUDA-event time
+    clip = create_dataset(cfg, phase="test")[0]
+    batch = {k: torch.from_numpy(v[None]).to(dev) for k, v in clip.items()
+             if isinstance(v, np.ndarray)}
+    ev.predict(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ev.predict(batch)
+    torch.cuda.synchronize()
+    p_launches, p_by_key = read_launches()
+    p_peak = torch.cuda.max_memory_allocated() / 1e9
+    check_eval_launches("one test.sh predict", p_launches, p_by_key, 1)
+    ms = cuda_time(lambda: ev.predict(batch), 3, warmup=1)
+    fps = (cfg.data.vid_len - m.ctx_len) / (ms / 1e3)
+    log(f"test.sh predict at 512x1024, B=1: {ms:.2f} ms per call over 3 -> {fps:.3f} predicted "
+        f"frames/s; peak memory {p_peak:.2f} GB")
+    res["predict"] = {"ms": ms, "fps": fps, "peak_gb": p_peak, "launches": p_launches}
+    if profile_dir:  # one iteration's work on a batch the loader has made
+        np_batch = {k: v[None] for k, v in clip.items() if isinstance(v, np.ndarray)}
+        res["profile_iteration"] = phase_profile(lambda: ev.step(0, np_batch, {}), profile_dir,
+                                                 "_eval_iteration")
+    k1_seen, k2_seen = capture_sample_inputs(lambda: ev.predict(batch))
+    del ev, batch
+    torch.cuda.empty_cache()
+
+    # the metrics CLI on the dumps; no LPIPS weights: the warning and ssim
+    tag = os.path.basename(cfg.result_path)
+    old_env = os.environ.get("WALDO_LPIPS_WEIGHTS")
+    os.environ["WALDO_LPIPS_WEIGHTS"] = os.path.join(root, "no_lpips")
+    err, out = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+            cum = metrics_cli.main([tag, str(cfg.data.vid_len), str(m.ctx_len),
+                                    "--results_root", os.path.join(root, "results")])
+    finally:
+        if old_env is None:
+            os.environ.pop("WALDO_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["WALDO_LPIPS_WEIGHTS"] = old_env
+    metrics_s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    log(f"metrics CLI ({metrics_s:.1f} s): " + " | ".join(ln for ln in lines if "cum" in ln
+                                                          and ":13]" in ln))
+    check("falling back to ssim" in err.getvalue(), "no LPIPS fallback warning")
+    check(sorted(cum) == ["cum_msssim", "cum_ssim"] and all(np.isfinite(v) for v in cum.values())
+          and sum("[cum " in ln for ln in lines) == 2 * (cfg.data.vid_len - m.ctx_len),
+          f"the metrics CLI's cumulative lines: {cum}")
+    res["metrics_cli"] = {"cum": cum, "seconds": metrics_s}
+
+    rows, res["sample_shares"] = eval_kernel_rows(dev, card_name, launches, by_key, k1_seen,
+                                                  k2_seen)
+    res["small_eval"] = small_eval_check(dev, root)
+
+    # test_mat.sh through the same CLI at its 512x1024 load, MAT with seeded
+    # random weights (Places512 is not in the repo)
+    mat_flags = eval_script_flags(TEST_MAT_SCRIPT) + [
+        "--data.dataroot", data_root, "--save_path", root, "--datetime", "smoke_mat",
+        "--s_inpainter_path", "", "--max_batch_eval_vid", str(EVAL_MAT_CLIPS)] + loads
+    cfg_mat = parse_cli(list(mat_flags))
+    check(cfg_mat.model.use_mat_inpainter and cfg_mat.model.use_inpainter
+          and cfg_mat.model.inpainter_path == "" and cfg_mat.load_dim == 512
+          and cfg_mat.max_batch_eval_vid == EVAL_MAT_CLIPS,
+          "the parsed test_mat.sh config is not the expected one")
+    metrics, ev, run_s, launches, by_key, peak_gb, mat_samples, mat_inputs = run_test_cli(
+        mat_flags, "test_mat.sh")
+    forwards = ev.inpainter.calls
+    check(forwards > 0 and forwards % 3 == 0, f"{forwards} MAT forwards")
+    # at this load the MAT post-processing's warps of whole frames fall in
+    # the sampler kernel's envelope (at phase 5's 256x512 they do not)
+    check(sum(mat_samples.values()) > 0, "no MAT warp went to the sampler kernel")
+    check_eval_launches("test_mat.sh", launches, by_key, EVAL_MAT_CLIPS,
+                        k3=mat_per_forward * forwards, mat_samples=mat_samples)
+    names = sorted(os.listdir(os.path.join(cfg_mat.result_path, "inp_pred_vid")))
+    check(len(names) == EVAL_MAT_CLIPS, f"inp_pred_vid dumps {names}")
+    clip_ms = [1e3 * t["predict_s"] for t in ev.iteration_times]
+    log(f"test_mat.sh: {forwards} MAT forwards, bias_act {launches['bias_act']} launches "
+        f"({mat_per_forward} a forward), MAT warps on the sampler kernel by rows "
+        f"{mat_samples}; ms per clip (predict + MAT + metrics + copy back) "
+        + ", ".join(f"{t:.1f}" for t in clip_ms))
+    res["test_mat_sh"] = {"metrics": metrics, "run_s": run_s, "launches": launches,
+                          "launches_by_key": by_key, "peak_gb": peak_gb,
+                          "mat_forwards": forwards, "mat_kernel_samples": mat_samples,
+                          "clip_ms": clip_ms,
+                          "iterations": eval_timing(ev)}
+    del ev
+    torch.cuda.empty_cache()
+    mat_rows, res["test_mat_sh"]["mat_warps"] = mat_warp_rows(card_name, mat_inputs)
+    rows += mat_rows
+    del mat_inputs
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 took {res['seconds']:.1f} s")
+    return res, rows
 
 
 def main(argv=None):
@@ -2333,6 +3082,12 @@ def main(argv=None):
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace one flagship predict, one MAT clip, and one step and one "
                          "loop iteration of each training phase with torch.profiler into DIR")
+    ap.add_argument("--k1-stress", type=int, default=0, metavar="REPS",
+                    help="only run phase 1 and then phase 3's flagship fused-warp cases REPS "
+                         "times each, into outputs that start as NaN (k1_stress); the last "
+                         "line is its JSON summary and the exit code 1 if any call failed")
+    ap.add_argument("--k1-cases", type=int, default=8,
+                    help="with --k1-stress, the first this many of the eight cases")
     args = ap.parse_args(argv)
 
     import torch
@@ -2346,6 +3101,10 @@ def main(argv=None):
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name, card_line = phase_device()
+    if args.k1_stress:
+        res = k1_stress(dev, args.k1_stress, args.k1_cases)
+        print(json.dumps({"k1_stress": jsonable(res)}), flush=True)
+        return int(any(res["calls_failing"].values()))
     build_s, bwd_sass, resources = phase_build()
     errs, per_channel = phase_kernels(dev)
     main_res, k1_seen = phase_main(dev, args.iters, args.profile)
@@ -2362,6 +3121,11 @@ def main(argv=None):
         flp_res = phase_flp(dev, name, root, lvd_dir, args.profile)
         wif_res, wif_rows = phase_wif(dev, name, root, lvd_dir, args.profile)
         rows += wif_rows
+        runs = {"lvd": lvd_dir, "flp": flp_res["checkpoint_path"],
+                "wif": wif_res["l1"]["checkpoint_path"]}
+        eval_res, eval_rows = phase_eval(dev, name, root, runs, mat_res["bias_act_per_forward"],
+                                         args.profile)
+        rows += eval_rows
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
@@ -2372,7 +3136,7 @@ def main(argv=None):
                                 "bwd_sass_atomics": bwd_sass, "ptxas": resources,
                                 "per_channel": per_channel,
                                 "main": main_res, "mat": mat_res, "train": train_res,
-                                "flp": flp_res, "wif": wif_res,
+                                "flp": flp_res, "wif": wif_res, "eval": eval_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -79,13 +79,20 @@ def test_batches_do_not_depend_on_workers():
     assert _wait_for_no_producer()
 
 
-class _Failing:
+class _NoDraws:
+    """The loader's dataset protocol for a dataset that draws nothing."""
+
+    def draw(self, i):
+        return None
+
+
+class _Failing(_NoDraws):
     """Clips 0-4 are fine; clip 5 raises."""
 
     def __len__(self):
         return 12
 
-    def __getitem__(self, i):
+    def make_clip(self, i, draws):
         if i == 5:
             raise OSError("truncated clip file")
         return {"x": np.full((2,), i, np.float32)}
@@ -111,14 +118,14 @@ def test_worker_failure_reaches_the_consumer():
     assert _wait_for_no_producer()
 
 
-class _Slow:
+class _Slow(_NoDraws):
     def __init__(self, n=40):
         self.n = n
 
     def __len__(self):
         return self.n
 
-    def __getitem__(self, i):
+    def make_clip(self, i, draws):
         time.sleep(0.01)
         return {"x": np.full((2,), i, np.float32)}
 

@@ -429,9 +429,11 @@ def test_synthetic_clips_match_jax():
 
 
 def test_datasets_not_ported_raise():
+    """Every dataset of the JAX package's registry is ported; a name outside
+    it raises, naming them."""
     from waldo_tpu_torch.data import create_dataset
 
     cfg = from_dict(jconfig.to_dict(tiny_config()))
-    cfg.data.dataset = "cityscapes"
-    with pytest.raises(NotImplementedError, match="synthetic"):
+    cfg.data.dataset = "moving_mnist"
+    with pytest.raises(KeyError, match="cityscapes.*kitti.*synthetic.*video_folder"):
         create_dataset(cfg)

@@ -3,11 +3,11 @@ process: shuffled epochs from a seeded permutation, drop_last, and a
 producer thread that makes each batch's clips on a pool of ``num_workers``
 threads and keeps up to ``prefetch`` batches ready in a bounded queue.
 
-A batch does not depend on ``num_workers``. A dataset that draws each
-clip's seed from a shared random stream (the synthetic training clips)
-splits the draw from the work: ``clip_seed(index)`` runs on the producer,
-in batch order, and ``make_clip(index, seed)`` on the workers. Any other
-dataset is indexed (``dataset[index]``) on the workers.
+A batch does not depend on ``num_workers``. Every dataset splits its
+draws from a shared random stream (the synthetic training clips' seeds, the
+frame datasets' augmentation and frame choice) from the work:
+``draw(index)`` runs on the producer, in batch order, and
+``make_clip(index, draws)`` on the workers.
 
 A worker's exception reaches the consumer as ``RuntimeError("data loader
 worker failed")``; a producer that ends without a result fails the
@@ -65,10 +65,8 @@ class DataLoader:
 
     def _make_batch(self, pool, bidx):
         ds = self.dataset
-        if hasattr(ds, "clip_seed"):
-            seeds = [ds.clip_seed(i) for i in bidx]  # the stream's draws, in order
-            return collate(list(pool.map(ds.make_clip, bidx, seeds)))
-        return collate(list(pool.map(ds.__getitem__, bidx)))
+        draws = [ds.draw(i) for i in bidx]  # the stream's draws, in order
+        return collate(list(pool.map(ds.make_clip, bidx, draws)))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._epoch_indices()

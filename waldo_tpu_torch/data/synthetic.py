@@ -21,16 +21,13 @@ class SyntheticDataset(BaseVideoDataset):
         return {"vid_frame_paths": [[f"synthetic_{phase}_{i}"]
                                     for i in range(self.num_clips[phase])]}
 
-    def clip_seed(self, index) -> int:
+    def draw(self, index) -> int:
         """A training clip's seed is the phase stream's next draw; the
         others' come from (phase, index), which Python's string hashing makes
         stable within one process only."""
         if self.phase == "train":
             return self.rng.randrange(2 ** 31)
         return hash((self.phase, index)) % (2 ** 31)
-
-    def __getitem__(self, index):
-        return self.make_clip(index, self.clip_seed(index))
 
     def make_clip(self, index, seed):
         """The clip at ``index`` made from ``seed``; reads no shared state,
