@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py [--iters N] [--out results.json] [--profile DIR]
     python3 chip_smoke.py --k1-stress REPS [--k1-cases N]
+    python3 chip_smoke.py --k2-fwd
 
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
      TF32 settings (both set off: the checks below are float32);
   2. build: compiles every CUDA kernel of the port from its sources, and
-     the two backwards' yardsticks (their earlier designs); prints each
-     kernel's registers and spills and the atomics in the backwards' SASS;
+     the yardsticks (the earlier designs of the two backwards and of K2's
+     shared-grid forward); prints each kernel's registers and spills and
+     the atomics in the backwards' SASS;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main paths' shapes and at ragged small shapes (bias_act: all nine
      activations, with and without bias, gain and clamp); the samplers'
      pre-pass (planes and nonzero boxes) for equality; the fused warp and the
      per-channel sampler on dense and object-sparse inputs and on the skip's
      edge cases (an all-zero plane, a layer grid wholly out of range, boxes
-     touching each border, a texel reached by one tap only, C=32);
+     touching each border, a texel reached by one tap only, C=32); K2's
+     shared-grid forward on its edge cases (k2_edge_checks: few and many
+     channels, tp_sz 1 and 3, ragged tiles, both window copies, holes,
+     shrinks past the window cap, bf16, outputs filled with NaN first) and
+     its autograd route;
   4. main path: the flagship predict (Cityscapes 256x512, 14 frames with 4
      of context, bf16 nets, "fast" sampling, iterative inversion) with
      seeded random weights; checks the kernel launch counts and the
@@ -96,9 +102,19 @@ and per kernel, and the device's idle share, to
 DIR/profile{,_mat,_train,_flp,_wif_*,*_iteration}.json and .txt.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
+Every K2 forward row (the shared-grid sample, tp_sz > 1 and batch mode)
+gives ms a call of its wrapper (back-to-back calls: the host's time where
+that is the larger) and ms on the device (launches captured in a CUDA graph
+and replayed), beside its first design (csrc/yardstick/grid_sample_fwd_pr1.cu)
+timed in turns on the device and F.grid_sample a call and on the device;
+the MAT warps' rows also split a call's host time (k2_host_split).
 With --k1-stress REPS only phase 1 runs, then phase 3's flagship cases of
 the fused warp REPS times each into outputs that start as NaN (k1_stress);
 the last line is its JSON summary.
+With --k2-fwd only phases 1 and 2 run, then K2's forward on its edge cases
+and at every row's shapes on dense inputs (k2_fwd_study, with the L2 test:
+a texture shared by tp_sz 14 grid rows against its 56 copies); the last
+line is its JSON summary.
 """
 from __future__ import annotations
 
@@ -136,6 +152,8 @@ K2PC_BWD_REPLACES = "waldo_tpu/ops/grid_sample.py:219"
 # backward's block-wide walk
 ROWS_BWD_SOURCE = "yardstick/grid_sample_bwd_rows.cu"
 SHARED_BWD_FIRST_SOURCE = "yardstick/grid_sample_shared_bwd_pr4.cu"
+# K2's shared-grid forward in its first design, the yardstick of its tile kernel
+FWD_FIRST_SOURCE = "yardstick/grid_sample_fwd_pr1.cu"
 TRAIN_SCRIPT = "scripts/cityscapes/train_lvd.sh"
 FLP_SCRIPT = "scripts/cityscapes/train_flp.sh"
 WIF_SCRIPT = "scripts/cityscapes/train_wif.sh"
@@ -402,9 +420,9 @@ def phase_build():
 
     log("== 2. build")
     t0 = time.perf_counter()
-    # every kernel of the port, and the backwards' yardsticks
+    # every kernel of the port, and the yardsticks (earlier designs)
     report = build(sorted({k.source for k in KERNELS.values()}
-                          | {ROWS_BWD_SOURCE, SHARED_BWD_FIRST_SOURCE}))
+                          | {ROWS_BWD_SOURCE, SHARED_BWD_FIRST_SOURCE, FWD_FIRST_SOURCE}))
     resources = {}
     for src, r in report.items():
         log(f"built {src} in {r['seconds']:.1f} s")
@@ -560,6 +578,7 @@ def phase_kernels(dev):
     errs["grid_sample", 40] = k2_case("N=40 C=23 flagship", 4, 256, 512, 23, 10, 256, 512)
     k2_case("ragged 31x45 C=7 -> 19x70", 3, 31, 45, 7, 2, 19, 70)
     k2_case("ragged bf16 31x45 C=7 -> 19x70", 3, 31, 45, 7, 2, 19, 70, torch.bfloat16)
+    errs["grid_sample", "edge"] = k2_edge_checks(dev, np.random.RandomState(10))
 
     per_channel = phase_kernels_per_channel(dev, rng, tex, grids[::3].contiguous())
     errs["bias_act"] = phase_kernels_bias_act(dev, rng)
@@ -1178,27 +1197,319 @@ def k1_input_shares(a, g, io, tp, label):
             "box_share": box_share}
 
 
-def k2_row(card_name, label, img, grid, tp, n_launches, err):
-    """The shared-grid sampler timed beside its bound, its plain version and
-    F.grid_sample on the repeated texture."""
+def graph_ms(fn, reps=20, replays=5):
+    """fn's device time: reps calls captured in one CUDA graph, so no host
+    time lies between the launches (a back-to-back loop of a call shorter
+    than its host work times the host); ms per call, the median over
+    replays timed one by one. The graph and its memory pool are freed
+    before it returns."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    times = []
+    for _ in range(replays):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    del g
+    torch.cuda.empty_cache()
+    return float(np.median(times))
+
+
+def fwd_first(img, grid, tp):
+    """K2's shared-grid forward in its first design (the tile kernel's
+    yardstick, csrc/yardstick/grid_sample_fwd_pr1.cu): img (F, H, W, C),
+    grid (F*tp, Ho, Wo, 2), both contiguous -> (F*tp, Ho, Wo, C)."""
+    import ctypes
+
+    import torch
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    k = yardstick(FWD_FIRST_SOURCE, "waldo_grid_sample_fwd_first", [p] * 3 + [i] * 8 + [p])
+    f, h, w, c = img.shape
+    rows, ho, wo = grid.shape[:3]
+    out = torch.empty((rows, ho, wo, c), dtype=img.dtype, device=img.device)
+    k.launch(None, img.data_ptr(), grid.data_ptr(), out.data_ptr(), h, w, c, rows, ho, wo, tp,
+             int(img.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def k2_fwd_times(img, grid, tp, reps=20):
+    """K2's shared-grid forward on these inputs, timed: ``ms`` per call of
+    its wrapper (back-to-back calls, CUDA events: the host's time per call
+    where that exceeds the kernel's), ``device_ms`` in a CUDA graph, and
+    its first-design yardstick's device time in turns with it (new, first,
+    first, new) and per call; F.grid_sample on the texture repeated tp
+    times, channel-first and float32 (``library_ms`` per call, and in a
+    graph)."""
+    import torch
     import torch.nn.functional as F
+    from waldo_tpu_torch.ops.kernels import grid_sample_cuda
+
+    new = lambda: grid_sample_cuda(img, grid, tp)
+    first = lambda: fwd_first(img, grid, tp)
+    nchw = img.repeat_interleave(tp, dim=0) if tp > 1 else img
+    nchw = nchw.permute(0, 3, 1, 2).float().contiguous()
+    lib = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=False)
+    turns = {"new": [], "first": []}
+    for who in ("new", "first", "first", "new"):
+        turns[who].append(graph_ms(new if who == "new" else first, reps))
+    res = {"ms": cuda_time(new, reps), "device_ms": sum(turns["new"]) / 2,
+           "yardstick_ms": sum(turns["first"]) / 2, "yardstick_call_ms": cuda_time(first, reps),
+           "library_ms": cuda_time(lib, reps), "library_device_ms": graph_ms(lib, reps),
+           "turns": turns}
+    del nchw
+    torch.cuda.empty_cache()
+    return res
+
+
+def k2_fwd_bound(card_name, img, grid, texels=None):
+    """K2's forward bound: the texture read once (or only the texels the
+    grid's taps reach, every channel of each, where ``texels`` counts
+    them), the grid read and the output written once, at the texture's
+    type; 16 + 8 C float32 operations a pixel."""
+    f, h, w, c = img.shape
+    n, ho, wo, _ = grid.shape
+    es, p = img.element_size(), ho * wo
+    read = f * h * w * c if texels is None else texels * c
+    return bound(card_name, es * (read + n * p * c) + 8 * n * p, n * p * (16 + 8 * c))
+
+
+def k2_row(card_name, label, img, grid, tp, n_launches, err, texels=None, **extra):
+    """A K2 forward row: the kernel timed (k2_fwd_times) beside its bound,
+    its plain version, F.grid_sample and its first-design yardstick; for the tile
+    kernel (C > FWD_FEW_C) also its windows on these inputs
+    (shared_fwd_windows): bands a tile, and the share of warps whose band's
+    window passes the cap, which read their texels from device memory."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import (FWD_FEW_C, grid_sample_ctx_plain,
+                                                 shared_fwd_windows)
+
+    t = k2_fwd_times(img, grid, tp)
+    plain = cuda_time(lambda: grid_sample_ctx_plain(img, grid, tp), 3)
+    b_ms, b_by = k2_fwd_bound(card_name, img, grid, texels)
+    f, h, w, c = img.shape
+    if c > FWD_FEW_C:
+        win = shared_fwd_windows(grid, h, w, c, img.element_size())
+        live = win[..., 4] >= 0
+        first = win[..., 4] == torch.arange(win.shape[3], device=win.device)
+        t["bands_per_tile"] = float(first.sum()) / (win.shape[0] * win.shape[1] * win.shape[2])
+        t["unstaged_warp_share"] = float((live & (win[..., 6] == 0)).sum()) / float(live.sum())
+        del win, live, first
+    return {"name": label, "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": n_launches, "max_abs_err": err, "ms": t.pop("ms"), "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": t.pop("library_ms"), **t,
+            **extra}
+
+
+def log_rows(rows):
+    """One line a kernel row: ms a call and, for K2's forward, on the device
+    and its first-design yardstick's; the bound and its share; the library
+    call's and the plain version's ms."""
+    for r in rows:
+        dev_ms = r.get("device_ms", r["ms"])
+        line = f"{r['name']}: {r['ms']:.4f} ms a call"
+        if "device_ms" in r:
+            line += f", {dev_ms:.4f} ms on the device"
+        line += (f" (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                 f"{r['bound_ms'] / dev_ms:.0%} of it)")
+        if "yardstick_ms" in r:
+            line += (f"; first-design yardstick {r['yardstick_ms']:.4f} ms on the device, "
+                     f"{r['yardstick_call_ms']:.4f} a call (turns {r['turns']})")
+        if "bands_per_tile" in r:
+            line += (f"; {r['bands_per_tile']:.3f} bands a tile, "
+                     f"{r['unstaged_warp_share']:.4f} of the warps past the window cap")
+        lib = r["library_ms"]
+        line += "; library " + ("none" if lib is None else f"{lib:.4f} ms a call")
+        if "library_device_ms" in r:
+            line += f", {r['library_device_ms']:.4f} on the device"
+        log(line + f"; plain {r['plain_ms']:.3f} ms")
+
+
+def k2_host_split(img, grid, reps=50):
+    """Where a short K2 call's time goes (ms a call, back-to-back): the
+    bare launch into an output made once, the wrapper (checks, output,
+    stream, launch), the path's own entry (grid_sample under
+    inference_mode, as the MAT post-processing calls it), and the host's
+    time alone (host clock over calls that are not waited for) for the
+    bare launch, the output's allocation, the wrapper, the path's entry
+    and F.grid_sample."""
+    import torch
+    import torch.nn.functional as F
+    from waldo_tpu_torch.ops.grid_sample import grid_sample
+    from waldo_tpu_torch.ops.kernels import GRID_SAMPLE, grid_sample_cuda
+
+    f, h, w, c = img.shape
+    rows, ho, wo = grid.shape[:3]
+    out = torch.empty((rows, ho, wo, c), dtype=img.dtype, device=img.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (img.data_ptr(), None, grid.data_ptr(), out.data_ptr(), h, w, c, rows, ho, wo, 1, 0,
+            int(img.dtype == torch.bfloat16), stream)
+    nchw = img.permute(0, 3, 1, 2).float().contiguous()
+    lib = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                align_corners=False)
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return t
+
+    res = {"launch_ms": cuda_time(lambda: GRID_SAMPLE.launch(None, *args), reps),
+           "launch_host_ms": host_ms(lambda: GRID_SAMPLE.launch(None, *args)),
+           "empty_host_ms": host_ms(lambda: torch.empty((rows, ho, wo, c), dtype=img.dtype,
+                                                        device=img.device)),
+           "wrapper_ms": cuda_time(lambda: grid_sample_cuda(img, grid, 1), reps),
+           "wrapper_host_ms": host_ms(lambda: grid_sample_cuda(img, grid, 1)),
+           "library_host_ms": host_ms(lib)}
+    with torch.inference_mode():
+        res["path_ms"] = cuda_time(lambda: grid_sample(img, grid), reps)
+        res["path_host_ms"] = host_ms(lambda: grid_sample(img, grid))
+    return res
+
+
+def k2_edge_checks(dev, rng):
+    """K2's shared-grid forward against its plain version on its edge
+    cases, each launched into an output filled with NaN (an element the
+    kernel never writes then fails): C = 1, 3 (the few-channel kernel), 23,
+    32 (the tile kernel); tp_sz 1 and 3; output sizes that are not whole
+    tiles; texture rows of a whole number of 16-byte vectors and not (the
+    window's two copy paths); smooth warps with the inverse warp's holes at
+    4.0; 1.5- and 3-fold shrinks (tile windows over the cap, staged in bands
+    of warps) and a 6-fold one (bands of one warp over the cap: texels read
+    from device memory); a grid wholly out of range; bf16 textures. Then the
+    autograd route: a sample whose inputs want a gradient records the
+    kernel's backward, one under no_grad does not. Returns the largest
+    float32 error."""
+    import torch
+    from waldo_tpu_torch.ops import get_grid
+    from waldo_tpu_torch.ops.grid_sample import (FWD_FEW_C, _grid_sample_kernel,
+                                                 grid_sample_ctx_plain, shared_fwd_windows)
+    from waldo_tpu_torch.ops.kernels import GRID_SAMPLE
+
+    worst = 0.0
+    for f, h, w, c, tp, ho, wo, kind, dtype in (
+            (2, 37, 52, 1, 3, 29, 45, "smooth", torch.float32),
+            (2, 37, 53, 3, 1, 40, 37, "smooth", torch.float32),
+            (2, 37, 52, 3, 3, 16, 48, "smooth", torch.float32),
+            (3, 40, 48, 23, 1, 45, 61, "smooth", torch.float32),
+            (2, 31, 45, 23, 3, 19, 70, "smooth", torch.float32),
+            (2, 33, 64, 32, 3, 37, 29, "smooth", torch.float32),
+            (2, 64, 96, 23, 3, 64, 96, "shrink1.5", torch.float32),
+            (2, 64, 96, 23, 1, 64, 96, "shrink3", torch.float32),
+            (2, 200, 256, 23, 1, 33, 40, "shrink6", torch.float32),
+            (2, 37, 52, 23, 3, 20, 30, "out_of_range", torch.float32),
+            (2, 37, 52, 23, 3, 29, 45, "smooth", torch.bfloat16),
+            (2, 37, 53, 3, 1, 29, 45, "smooth", torch.bfloat16),
+            (2, 64, 96, 23, 1, 64, 96, "shrink3", torch.bfloat16)):
+        img, grid = k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype)
+        if kind != "smooth":
+            base = torch.as_tensor(get_grid(ho, wo), device=dev)
+            grid = (grid + 3.0 if kind == "out_of_range" else base * float(kind[6:]))
+            grid = grid.expand(f * tp, ho, wo, 2).contiguous()
+        tiles = bands = unstaged = 0
+        if c > FWD_FEW_C:  # the tile kernel's windows (fewer channels: a thread a pixel)
+            win = shared_fwd_windows(grid, h, w, c, img.element_size())
+            tiles = win.shape[0] * win.shape[1] * win.shape[2]
+            bands = int((win[..., 4] == torch.arange(win.shape[3], device=dev)).sum())
+            unstaged = int(((win[..., 4] >= 0) & (win[..., 6] == 0)).sum())
+        out = torch.full((f * tp, ho, wo, c), float("nan"), device=dev).to(dtype)
+        GRID_SAMPLE.launch(None, img.data_ptr(), None, grid.data_ptr(), out.data_ptr(), h, w, c,
+                           f * tp, ho, wo, tp, 0, int(dtype == torch.bfloat16),
+                           torch.cuda.current_stream().cuda_stream)
+        want = grid_sample_ctx_plain(img, grid, tp)
+        torch.cuda.synchronize()
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        e = float((out.float() - want.float()).abs().max())
+        label = (f"{f}x{h}x{w} C={c} tp_sz {tp} -> {ho}x{wo} {kind} "
+                 f"{str(dtype).replace('torch.', '')}")
+        log(f"grid_sample edge case {label}: max|err| {e:.3g} (tol {tol:.3g}); "
+            f"{bands} bands in {tiles} tiles, {unstaged} warps reading device memory")
+        check(e <= tol and bool(torch.isfinite(out).all()),
+              f"grid_sample edge case {label} disagrees: {e}")
+        check(kind in ("smooth", "out_of_range", "shrink6") or bands > tiles,
+              f"{label}: no tile was split into bands")
+        check(kind != "shrink6" or unstaged > 0, f"{label}: every band was staged")
+        if dtype == torch.float32:
+            worst = max(worst, e)
+    img, grid = k2_inputs(rng, 2, 37, 52, 23, 3, 29, 45, dev)
+    grid.requires_grad_()
+    out = _grid_sample_kernel(img, grid, 3)
+    check(out.grad_fn is not None, "a sample whose grid wants a gradient recorded no backward")
+    (g,) = torch.autograd.grad(out, grid, torch.ones_like(out))
+    check(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
+          "the sample's grid gradient is not finite or all 0")
+    with torch.no_grad():
+        check(_grid_sample_kernel(img, grid, 3).grad_fn is None,
+              "a sample under no_grad recorded a backward")
+    log("grid_sample autograd route: a grid that wants a gradient records the kernel's "
+        "backward; under no_grad the kernel runs alone")
+    return worst
+
+
+def k2_fwd_study(dev, card_name):
+    """--k2-fwd: K2's shared-grid forward at every row's shapes on dense
+    inputs (smooth random warps with 5 % holes), each against its plain
+    version and timed (k2_row); where the test.sh shapes' time goes in L2
+    (the first-design yardstick with tp_sz 14 on 4 textures against tp_sz 1 on
+    the 56 copies: equal times mean that every grid row reads its texture
+    from device memory); and the host's share of the one-row MAT warps'
+    calls (k2_host_split)."""
+    import torch
     from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain
     from waldo_tpu_torch.ops.kernels import grid_sample_cuda
 
-    f, h, w, c = img.shape
-    n, ho, wo, _ = grid.shape
-    ms = cuda_time(lambda: grid_sample_cuda(img, grid, tp), 20)
-    plain = cuda_time(lambda: grid_sample_ctx_plain(img, grid, tp), 3)
-    rep = img.repeat_interleave(tp, dim=0).permute(0, 3, 1, 2).contiguous()
-    lib = cuda_time(lambda: F.grid_sample(rep, grid, mode="bilinear", padding_mode="zeros",
-                                          align_corners=False), 20)
-    del rep
-    p = ho * wo
-    nbytes = 4 * (f * h * w * c + n * p * 2 + n * p * c)
-    b_ms, b_by = bound(card_name, nbytes, n * p * (16 + 8 * c))
-    return {"name": label, "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-            "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    log("== K2 forward on its edge cases")
+    k2_edge_checks(dev, np.random.RandomState(10))
+    rng = np.random.RandomState(4)
+    log("== K2 forward at every row's shapes, dense inputs")
+    rows, extra = [], {}
+    for label, f, h, w, c, tp in (("flagship N=56", 4, 256, 512, 23, 14),
+                                  ("flagship N=40", 4, 256, 512, 23, 10),
+                                  ("LVD batch mode", 112, 128, 256, 23, 1),
+                                  ("WIF decode batch mode", 32, 512, 1024, 23, 1),
+                                  ("test.sh N=56", 4, 512, 1024, 23, 14),
+                                  ("test.sh N=40", 4, 512, 1024, 23, 10),
+                                  ("MAT warp masks", 1, 512, 1024, 1, 1),
+                                  ("MAT warp RGB", 1, 512, 1024, 3, 1)):
+        img, grid = k2_inputs(rng, f, h, w, c, tp, h, w, dev)
+        want = grid_sample_ctx_plain(img, grid, tp)
+        err = max_err(grid_sample_cuda(img, grid, tp), want)
+        err_first = max_err(fwd_first(img, grid, tp), want)
+        del want
+        check(err <= TOL_F32 and err_first <= TOL_F32,
+              f"K2 {label}: max|err| {err} (first-design yardstick {err_first})")
+        row = k2_row(card_name, f"grid_sample {label} {f}x{h}x{w} C={c} tp_sz {tp}", img, grid,
+                     tp, 0, err)
+        if c <= 3:
+            row["host_split"] = k2_host_split(img, grid)
+            log(f"{label}: {row['host_split']}")
+        if label == "test.sh N=56":
+            rep = img.repeat_interleave(tp, dim=0)
+            extra["l2"] = {"first_tp14_ms": row["yardstick_ms"],
+                           "first_tp1_copies_ms": graph_ms(lambda: fwd_first(rep, grid, 1)),
+                           "new_tp14_ms": row["device_ms"],
+                           "new_tp1_copies_ms": graph_ms(lambda: grid_sample_cuda(rep, grid, 1))}
+            log(f"{label}, one texture for 14 rows against 56 copies: {extra['l2']}")
+            del rep
+        rows.append(row)
+        log_rows(rows[-1:])
+        del img, grid
+        torch.cuda.empty_cache()
+    return rows, extra
 
 
 def plane_boxes_row(card_name, label, tex, n_launches):
@@ -1298,10 +1609,7 @@ def phase_timings(dev, card_name, errs, by_key, mat_by_key, launches, k3_launche
                  "bound_by": b_by, "library_ms": None})
     del x
     torch.cuda.empty_cache()
-    for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms")
+    log_rows(rows)
     return rows, zero_shares
 
 
@@ -1775,11 +2083,6 @@ def phase_train_kernels(dev, card_name, run_launches, step_inputs, k2_step_input
     errs["b_bwd"] = max(errs["b_bwd"], rel(g_grid, w_grid, "grad_grid"))
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
     gout_nchw = gout_b.permute(0, 3, 1, 2).contiguous()
-    fwd = dict(
-        ms=cuda_time(lambda: grid_sample_cuda(img, grid, 1), 10),
-        plain_ms=cuda_time(lambda: grid_sample_plain(img, grid), 3),
-        library_ms=cuda_time(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
-                                                   padding_mode="zeros", align_corners=False), 10))
     bwd = dict(
         ms=cuda_time(lambda: grid_sample_bwd_cuda(img, grid, gout_b, 1, False), 10),
         plain_ms=cuda_time(lambda: torch.autograd.grad(w_out, grid_p, gout_b, retain_graph=True),
@@ -1791,19 +2094,15 @@ def phase_train_kernels(dev, card_name, run_launches, step_inputs, k2_step_input
     # ATen on the channel-last tensors themselves (NCHW views), beside its NCHW time
     k2b["dense"]["aten_channel_last"] = aten_grid_bwd_ms(img.permute(0, 3, 1, 2), grid,
                                                          gout_b.permute(0, 3, 1, 2))
-    texel_b, grid_b, out_b = 4 * f * h * w * 23, 8 * f * p, 4 * f * p * 23
-    b_fwd = bound(card_name, texel_b + grid_b + out_b, f * p * (16 + 8 * 23))
     b_bwd = k2_bwd_bound(card_name, img, grid, gout_b)
-    rows.append({"name": f"grid_sample batch mode {f}x{h}x{w} C=23", "route": "cuda",
-                 "source": K2_SOURCE, "replaces": K2_REPLACES,
-                 "launches": run_launches["grid_sample"], "max_abs_err": errs["b_fwd"],
-                 **fwd, "bound_ms": b_fwd[0], "bound_by": b_fwd[1]})
-    k2_row = {"name": f"grid_sample_bwd batch mode {f}x{h}x{w} C=23, grid only "
+    rows.append(k2_row(card_name, f"grid_sample batch mode {f}x{h}x{w} C=23", img, grid, 1,
+                       run_launches["grid_sample"], errs["b_fwd"]))
+    k2_bwd_row = {"name": f"grid_sample_bwd batch mode {f}x{h}x{w} C=23, grid only "
                       f"(launched by an LVD step with pxl_vid)",
               "route": "cuda", "source": BWD_SOURCE, "replaces": K2_BWD_REPLACES,
               "launches": run_launches["grid_sample_bwd"], "max_abs_err": errs["b_bwd"],
               **bwd, "bound_ms": b_bwd[0], "bound_by": b_bwd[1]}
-    rows.append(k2_row)
+    rows.append(k2_bwd_row)
     del img, grid, out, g_grid, grid_p, w_out, w_grid, gout_pc, gout_b
     torch.cuda.empty_cache()
 
@@ -1828,19 +2127,16 @@ def phase_train_kernels(dev, card_name, run_launches, step_inputs, k2_step_input
         grad_out=st, bound_ms=b_step[0],
         ms=cuda_time(lambda: grid_sample_bwd_cuda(s_img, s_grid, s_in, s_tp, False), 10),
         **k2_bwd_turns(s_img, s_grid, s_gout, s_tp))
-    k2_row["max_abs_err"] = errs["b_bwd"]
-    k2_row["turns"] = {k: {"first": v["first"], "new": v["new"]} for k, v in k2b.items()}
+    k2_bwd_row["max_abs_err"] = errs["b_bwd"]
+    k2_bwd_row["turns"] = {k: {"first": v["first"], "new": v["new"]} for k, v in k2b.items()}
     del s_img, s_grid, s_gout, s_in, k2_step_inputs
     torch.cuda.empty_cache()
-    for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms']:.4f} ms")
+    log_rows(rows)
     d, t = k2b["dense"], k2b["step_inputs"]
     log(f"K2 backward, grid only, in turns first design, tiles, tiles, first design (ms, as the "
         f"autograd function runs each): dense {d['first'][0]:.4f} / {d['new'][0]:.4f} / "
         f"{d['new'][1]:.4f} / {d['first'][1]:.4f} ({d['tiles_staged']:.4g} of the windows staged; "
-        f"ATen NCHW {k2_row['library_ms']:.4f}, ATen on the channel-last views "
+        f"ATen NCHW {k2_bwd_row['library_ms']:.4f}, ATen on the channel-last views "
         f"{d['aten_channel_last']:.4f}); the pxl_vid step's inputs {t['first'][0]:.4f} / "
         f"{t['new'][0]:.4f} / {t['new'][1]:.4f} / {t['first'][1]:.4f} (bound on these inputs "
         f"{t['bound_ms']:.4f})")
@@ -2422,29 +2718,16 @@ def wif_kernel_rows(card_name, run_launches, pc_inputs, batch_inputs):
         f"{tuple(grid.shape)}; max|err| {err:.3g} (tol {tol})")
     check(bool(torch.isfinite(out).all()) and err <= tol, f"K2 batch mode on the WIF inputs: {err}")
     del out, want
-    img_nchw = img.permute(0, 3, 1, 2).float().contiguous()
-    timed = dict(
-        ms=cuda_time(lambda: grid_sample_cuda(img, grid, 1), 10),
-        plain_ms=cuda_time(lambda: grid_sample_plain(img, grid), 3),
-        library_ms=cuda_time(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
-                                                   padding_mode="zeros", align_corners=False), 10))
-    # the texels the grid's taps reach, every channel of each
-    texels = tapped_texels(grid, h, w) * c
-    b = bound(card_name, img.element_size() * (texels + f * p * c) + 8 * f * p,
-              f * p * (16 + 8 * c))
+    # the bound counts the texels the grid's taps reach, every channel of each
+    texels = tapped_texels(grid, h, w)
     log(f"K2 batch mode on the WIF decode's inputs: the grid's taps read "
-        f"{texels / (f * h * w * c):.4f} of the texture")
-    rows.append({"name": f"grid_sample batch mode WIF decode {f}x{h}x{w} C={c}", "route": "cuda",
-                 "source": K2_SOURCE, "replaces": K2_REPLACES,
-                 "launches": run_launches["grid_sample"], "max_abs_err": err,
-                 **timed, "bound_ms": b[0], "bound_by": b[1],
-                 "texels_read_share": texels / (f * h * w * c)})
-    del img, grid, img_nchw, batch_inputs
+        f"{texels / (f * h * w):.4f} of the texture")
+    rows.append(k2_row(card_name, f"grid_sample batch mode WIF decode {f}x{h}x{w} C={c}", img,
+                       grid, 1, run_launches["grid_sample"], err, texels,
+                       texels_read_share=texels / (f * h * w)))
+    del img, grid, batch_inputs
     torch.cuda.empty_cache()
-    for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
-            f"F.grid_sample {r['library_ms']:.4f} ms")
+    log_rows(rows)
     return rows
 
 
@@ -2811,10 +3094,7 @@ def eval_kernel_rows(dev, card_name, launches, by_key, k1_seen, k2_seen):
                                 launches["plane_boxes"]))
     del tex
     torch.cuda.empty_cache()
-    for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms")
+    log_rows(rows)
     return rows, shares
 
 
@@ -2822,18 +3102,17 @@ def mat_warp_rows(card_name, mat_inputs):
     """K2's batch mode on the MAT post-processing's whole-frame warps of
     test_mat.sh at 512x1024, one row for each shape the CLI run handed it:
     on the first inputs of that shape, against its plain version, timed
-    beside its bound (the texels the grid's taps reach) and one
-    F.grid_sample call; its launches are the run's of that shape."""
+    (k2_row: a call and on the device, beside the first-design yardstick and one
+    F.grid_sample call) beside its bound (the texels the grid's taps
+    reach), with where a call's host time goes (k2_host_split); its
+    launches are the run's of that shape."""
     import torch
-    import torch.nn.functional as F
     from waldo_tpu_torch.ops.grid_sample import _grid_sample_kernel, grid_sample_plain
-    from waldo_tpu_torch.ops.kernels import grid_sample_cuda
 
     rows, seen = [], []
     with torch.inference_mode():  # as the MAT path runs, and its copies were made
         for (img_shape, grid_shape, dtype), (n, img, grid) in sorted(mat_inputs.items()):
             f, h, w, c = img.shape
-            p = grid.shape[1] * grid.shape[2]
             tol = TOL_F32 if img.dtype == torch.float32 else TOL_BF16
             out = _grid_sample_kernel(img, grid, 1)
             want = grid_sample_plain(img, grid)
@@ -2847,26 +3126,14 @@ def mat_warp_rows(card_name, mat_inputs):
             seen.append({"texture": img_shape, "grid": grid_shape, "dtype": dtype,
                          "launches": n, "max_abs_err": err, "zero_share": zero})
             del out, want
-            img_nchw = img.permute(0, 3, 1, 2).float().contiguous()
-            timed = dict(
-                ms=cuda_time(lambda: grid_sample_cuda(img, grid, 1), 20),
-                plain_ms=cuda_time(lambda: grid_sample_plain(img, grid), 5),
-                library_ms=cuda_time(lambda: F.grid_sample(img_nchw, grid, mode="bilinear",
-                                                           padding_mode="zeros",
-                                                           align_corners=False), 20))
-            texels = tapped_texels(grid, h, w) * c
-            b = bound(card_name, img.element_size() * (texels + f * p * c) + 8 * f * p,
-                      f * p * (16 + 8 * c))
-            rows.append({"name": f"grid_sample batch mode MAT warp {f}x{h}x{w} C={c} "
-                                 f"{dtype.replace('torch.', '')} test_mat.sh inputs",
-                         "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-                         "launches": n, "max_abs_err": err, **timed, "bound_ms": b[0],
-                         "bound_by": b[1], "texels_read_share": texels / (f * h * w * c)})
-            del img_nchw
-    for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.0%} of it), plain {r['plain_ms']:.3f} ms, "
-            f"F.grid_sample {r['library_ms']:.4f} ms")
+            texels = tapped_texels(grid, h, w)
+            rows.append(k2_row(card_name, f"grid_sample batch mode MAT warp {f}x{h}x{w} C={c} "
+                                          f"{dtype.replace('torch.', '')} test_mat.sh inputs",
+                               img, grid, 1, n, err, texels,
+                               texels_read_share=texels / (f * h * w),
+                               host_split=k2_host_split(img, grid)))
+            log(f"{rows[-1]['name']}: where a call's time goes {rows[-1]['host_split']}")
+    log_rows(rows)
     return rows, seen
 
 
@@ -3088,6 +3355,9 @@ def main(argv=None):
                          "line is its JSON summary and the exit code 1 if any call failed")
     ap.add_argument("--k1-cases", type=int, default=8,
                     help="with --k1-stress, the first this many of the eight cases")
+    ap.add_argument("--k2-fwd", action="store_true",
+                    help="only run phases 1 and 2 and then K2's forward at every row's shapes "
+                         "on dense inputs (k2_fwd_study); the last line is its JSON summary")
     args = ap.parse_args(argv)
 
     import torch
@@ -3106,6 +3376,10 @@ def main(argv=None):
         print(json.dumps({"k1_stress": jsonable(res)}), flush=True)
         return int(any(res["calls_failing"].values()))
     build_s, bwd_sass, resources = phase_build()
+    if args.k2_fwd:
+        k2_rows, extra = k2_fwd_study(dev, name)
+        print(json.dumps(jsonable({"k2_fwd": k2_rows, **extra})), flush=True)
+        return 0
     errs, per_channel = phase_kernels(dev)
     main_res, k1_seen = phase_main(dev, args.iters, args.profile)
     mat_res = phase_mat(dev, args.profile)

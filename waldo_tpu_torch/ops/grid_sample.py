@@ -21,8 +21,9 @@ pre-pass that feeds the per-layer samples of the kernels, and
 ``tap_footprint_skips`` the kernels' exact test for a sample that is 0
 without reading a texel (the TPU kernels' sparsity skip); ``bwd_tap_routes``
 models where the per-channel backward kernel sums each tap term of grad_img,
-and ``shared_bwd_windows`` the texture windows the shared-grid backward
-kernel stages for its tiles of output pixels.
+``shared_bwd_windows`` the texture windows the shared-grid backward kernel
+stages for its tiles of output pixels, and ``shared_fwd_windows`` and
+``fwd_block`` the shared-grid forward kernel's windows and block order.
 The kernels and the plain versions compute in float32: the JAX signatures'
 ``precision`` has no counterpart here, since "fast" sampling only decides
 where the callers store bf16 maps.
@@ -86,9 +87,19 @@ class _GridSampleCuda(torch.autograd.Function):
         return g_img, g_grid if ctx.needs_input_grad[1] else None, None
 
 
+def _wants_grad(img: torch.Tensor, grid: torch.Tensor) -> bool:
+    """Whether autograd has to record a sample of img along grid."""
+    return torch.is_grad_enabled() and (img.requires_grad or grid.requires_grad)
+
+
 def _grid_sample_kernel(img, grid, tp_sz):
-    _require_float32(img, grid, "grid_sample")
-    return _GridSampleCuda.apply(img.contiguous(), grid.float().contiguous(), tp_sz)
+    if _wants_grad(img, grid):
+        _require_float32(img, grid, "grid_sample")
+        return _GridSampleCuda.apply(img.contiguous(), grid.float().contiguous(), tp_sz)
+    # nothing asks for a gradient (predict, the evaluator, the MAT warps,
+    # WIF's decode): the kernel's wrapper alone, without the autograd
+    # function's host work, which took longer than the MAT warps' kernel
+    return grid_sample_cuda(img.contiguous(), grid.float().contiguous(), tp_sz)
 
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -163,6 +174,30 @@ def bwd_tap_routes(grids: torch.Tensor, grad_out: torch.Tensor, h: int, w: int,
     return (live.to(torch.int8) * (1 if h * w <= cap else 2)).to(torch.int8)
 
 
+def _tile_boxes(grid: torch.Tensor, h: int, w: int, th: int, tw: int) -> torch.Tensor:
+    """The inclusive box (x_lo, x_hi, y_lo, y_hi) of the texels that the
+    valid bilinear taps of each th x tw tile of output pixels read, for grid
+    (R, Ho, Wo, 2) on textures of h x w texels: (R, ceil(Ho / th),
+    ceil(Wo / tw), 4) int64, (w, -1, h, -1) where no tap of the tile lies on
+    the texture."""
+    r, ho, wo = grid.shape[:3]
+    x0, y0 = _top_left(grid[..., 0], w), _top_left(grid[..., 1], h)
+    on_x = ((x0 >= 0) & (x0 < w)) | ((x0 + 1 >= 0) & (x0 + 1 < w))
+    on_y = ((y0 >= 0) & (y0 < h)) | ((y0 + 1 >= 0) & (y0 + 1 < h))
+    ok = on_x & on_y  # some tap of the pixel lies on the texture
+    big = 1 << 40
+    lo_hi = torch.stack([torch.where(ok, x0.clamp(min=0), big),
+                         torch.where(ok, -(x0 + 1).clamp(max=w - 1), big),
+                         torch.where(ok, y0.clamp(min=0), big),
+                         torch.where(ok, -(y0 + 1).clamp(max=h - 1), big)], dim=-1)
+    ny, nx = -(-ho // th), -(-wo // tw)
+    lo_hi = torch.nn.functional.pad(lo_hi, (0, 0, 0, nx * tw - wo, 0, ny * th - ho), value=big)
+    box = lo_hi.reshape(r, ny, th, nx, tw, 4).amin(dim=(2, 4))
+    empty = box[..., 0] == big
+    box = torch.where(empty[..., None], torch.tensor([w, 1, h, 1], device=grid.device), box)
+    return box * torch.tensor([1, -1, 1, -1], device=grid.device)
+
+
 # the shared-grid backward kernel (csrc/grid_sample_bwd.cu, shared mode): a
 # block takes a BWD_TILE x BWD_TILE tile of output pixels and stages, for
 # BWD_MAX_C channels at a time, the texture window its taps reach where the
@@ -182,28 +217,98 @@ def shared_bwd_windows(grid: torch.Tensor, h: int, w: int, c: int) -> torch.Tens
     times that, rounded up to 16 mod 32), and 1 where the window, rows of
     that stride, fits BWD_WINDOW_CAP floats and is staged in shared memory,
     else 0 (the tile reads its texels from device memory)."""
-    r, ho, wo = grid.shape[:3]
-    x0, y0 = _top_left(grid[..., 0], w), _top_left(grid[..., 1], h)
-    on_x = ((x0 >= 0) & (x0 < w)) | ((x0 + 1 >= 0) & (x0 + 1 < w))
-    on_y = ((y0 >= 0) & (y0 < h)) | ((y0 + 1 >= 0) & (y0 + 1 < h))
-    ok = on_x & on_y  # some tap of the pixel lies on the texture
-    big = 1 << 40
-    lo_hi = torch.stack([torch.where(ok, x0.clamp(min=0), big),
-                         torch.where(ok, -(x0 + 1).clamp(max=w - 1), big),
-                         torch.where(ok, y0.clamp(min=0), big),
-                         torch.where(ok, -(y0 + 1).clamp(max=h - 1), big)], dim=-1)
-    t = BWD_TILE
-    ty, tx = -(-ho // t), -(-wo // t)
-    lo_hi = torch.nn.functional.pad(lo_hi, (0, 0, 0, tx * t - wo, 0, ty * t - ho), value=big)
-    box = lo_hi.reshape(r, ty, t, tx, t, 4).amin(dim=(2, 4))
-    empty = box[..., 0] == big
-    box = torch.where(empty[..., None], torch.tensor([w, 1, h, 1], device=grid.device), box)
-    box = box * torch.tensor([1, -1, 1, -1], device=grid.device)
+    box = _tile_boxes(grid, h, w, BWD_TILE, BWD_TILE)
     cw = min(c, BWD_MAX_C)
     row = (box[..., 1] - box[..., 0] + 1).clamp(min=0) * cw
     stride = row + (16 - row) % 32
     rows = (box[..., 3] - box[..., 2] + 1).clamp(min=0)
     return torch.cat([box, stride[..., None], (rows * stride <= BWD_WINDOW_CAP).long()[..., None]],
+                     dim=-1)
+
+
+# K2's shared-grid forward (csrc/grid_sample.cu, shared mode): for more than
+# FWD_FEW_C channels a block takes a FWD_TILE_H x FWD_TILE_W tile of output
+# pixels of one grid row, a warp two of its rows; runs of consecutive warps
+# (bands) stage the texture window their taps reach, each at most
+# fwd_window_cap elements. With at most FWD_FEW_C channels a thread takes a
+# pixel and reads its taps from the texture.
+FWD_TILE_W, FWD_TILE_H = 16, 8
+FWD_WARPS = FWD_TILE_W * FWD_TILE_H // 32
+FWD_WIN_BYTES = 19 * 1024
+FWD_FEW_C = 4
+
+
+def fwd_window_cap(itemsize: int) -> int:
+    """The most texture elements a forward block stages (csrc/grid_sample.cu:
+    kWinBytes)."""
+    return FWD_WIN_BYTES // itemsize
+
+
+def fwd_block(b: int, tp_sz: int, tiles_y: int, tiles_x: int) -> Tuple[int, int, int]:
+    """The forward tile kernel's order of its blocks: block b takes (grid
+    row, tile row, tile column), tile-major with the tp_sz grid rows of one
+    texture's tile side by side."""
+    j, b = b % tp_sz, b // tp_sz
+    tx, b = b % tiles_x, b // tiles_x
+    return (b // tiles_y) * tp_sz + j, b % tiles_y, tx
+
+
+def shared_fwd_windows(grid: torch.Tensor, h: int, w: int, c: int,
+                       itemsize: int = 4) -> torch.Tensor:
+    """The forward tile kernel's texture windows (c > FWD_FEW_C), in plain
+    PyTorch: grid (R, Ho, Wo, 2) sampling textures of h x w texels, c
+    channels of itemsize bytes. Each warp's box is the box of the texels
+    its pixels' valid taps read (``_tile_boxes`` of 2 x FWD_TILE_W pixels);
+    the warps that hold a tile's rows, in order, join a band while the
+    union of their boxes, staged as rows of the stride below, fits
+    ``fwd_window_cap``. The stride of a window w texels wide is w*c + v - 1
+    elements (v = 16 // itemsize where a texture row is a whole number of
+    16-byte vectors, whose copies start aligned, else 1) rounded up to 16
+    mod 32. Returns (R, ceil(Ho / FWD_TILE_H), ceil(Wo / FWD_TILE_W),
+    FWD_WARPS, 7) int64, for each warp: its band's box (x_lo, x_hi, y_lo,
+    y_hi), (w, -1, h, -1) where empty; its band's first warp (-1 for a warp
+    with no output pixel); the window's row stride; and 1 where the window
+    is staged, else 0 (a band of one warp over the cap: its pixels read
+    their texels from device memory)."""
+    r, ho = grid.shape[:2]
+    vec = 16 // itemsize if (w * c * itemsize) % 16 == 0 else 1
+    cap = fwd_window_cap(itemsize)
+    ny = -(-ho // FWD_TILE_H)
+    warp_boxes = _tile_boxes(grid, h, w, 2, FWD_TILE_W)
+    boxes = torch.tensor([w, -1, h, -1], device=grid.device).repeat(
+        r, ny * FWD_WARPS, warp_boxes.shape[2], 1)  # warps past the last row: empty
+    boxes[:, :warp_boxes.shape[1]] = warp_boxes
+    boxes = boxes.reshape(r, ny, FWD_WARPS, -1, 4).transpose(2, 3)  # (R, ny, nx, warps, 4)
+    rows_left = ho - FWD_TILE_H * torch.arange(ny, device=grid.device)  # rows of each tile row
+    live = 2 * torch.arange(FWD_WARPS, device=grid.device) < rows_left[:, None]
+    live = live[None, :, None, :].expand(boxes.shape[:4])
+
+    def stride(b):
+        n = (b[..., 1] - b[..., 0] + 1).clamp(min=0) * c + vec - 1
+        return n + (16 - n) % 32
+
+    def elems(b):
+        return torch.where(b[..., 0] > b[..., 1], 0, (b[..., 3] - b[..., 2] + 1) * stride(b))
+
+    def union(a, b):
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        return torch.stack([lo[..., 0], hi[..., 1], lo[..., 2], hi[..., 3]], dim=-1)
+
+    win, start = [boxes[..., 0, :]], [torch.zeros_like(boxes[..., 0, 0])]
+    for k in range(1, FWD_WARPS):
+        u = union(win[-1], boxes[..., k, :])
+        join = (elems(u) <= cap) | ~live[..., k]
+        win.append(torch.where(join[..., None], u, boxes[..., k, :]))
+        start.append(torch.where(join, start[-1], k))
+    for k in range(FWD_WARPS - 2, -1, -1):  # a band's window is its last warp's union
+        same = start[k + 1] == start[k]
+        win[k] = torch.where(same[..., None], win[k + 1], win[k])
+    win, start = torch.stack(win, dim=-2), torch.stack(start, dim=-1)
+    start = torch.where(live, start, -1)
+    empty = win[..., 0] > win[..., 1]
+    win = torch.where(empty[..., None], torch.tensor([w, -1, h, -1], device=grid.device), win)
+    st = torch.where(empty, 0, stride(win))
+    return torch.cat([win, start[..., None], st[..., None], (elems(win) <= cap).long()[..., None]],
                      dim=-1)
 
 

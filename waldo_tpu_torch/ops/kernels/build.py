@@ -90,6 +90,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self._lib: Optional[ctypes.CDLL] = None
+        self._fn = None
         self.launches = 0
         self.launches_by_key: collections.Counter = collections.Counter()
 
@@ -106,13 +107,15 @@ class CudaKernel:
             lib.waldo_cuda_error_string.argtypes = [ctypes.c_int]
             lib.waldo_cuda_error_string.restype = ctypes.c_char_p
             self._lib = lib
+            self._fn = getattr(lib, self.symbol)
         return self._lib
 
     def launch(self, key, *args) -> None:
-        lib = self._load()
-        err = getattr(lib, self.symbol)(*args)
+        if self._fn is None:
+            self._load()
+        err = self._fn(*args)
         if err != 0:
-            msg = lib.waldo_cuda_error_string(err).decode()
+            msg = self._lib.waldo_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err} ({msg})")
         self.launches += 1
         self.launches_by_key[key] += 1

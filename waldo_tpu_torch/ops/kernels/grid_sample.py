@@ -32,7 +32,9 @@ def _check(img: torch.Tensor, grid: torch.Tensor, tp_sz: int, dtypes, shape=None
     """Device, type, contiguity and shape checks of a sample's texture and
     grid; ``shape`` is the texture's (F, H, W, C) where img holds it in
     another layout (the planes)."""
-    if not (img.is_cuda and grid.is_cuda and img.device == grid.device):
+    # a call's host time counts (the MAT warps' kernel runs for a few
+    # microseconds): each property is read once
+    if not (img.is_cuda and grid.is_cuda and img.get_device() == grid.get_device()):
         raise ValueError(f"grid_sample_cuda needs both tensors on one CUDA device, "
                          f"got {img.device} and {grid.device}")
     if img.dtype not in dtypes or grid.dtype != torch.float32:
@@ -40,13 +42,14 @@ def _check(img: torch.Tensor, grid: torch.Tensor, tp_sz: int, dtypes, shape=None
                         f"and a float32 grid, got {img.dtype} and {grid.dtype}")
     if not (img.is_contiguous() and grid.is_contiguous()):
         raise ValueError("grid_sample_cuda needs contiguous tensors")
-    shape = tuple(img.shape) if shape is None else tuple(shape)
-    if len(shape) != 4 or grid.shape[-1] != 2 or grid.dim() not in (4, 5):
-        raise ValueError(f"bad shapes img {shape} grid {tuple(grid.shape)}")
+    shape = img.shape if shape is None else tuple(shape)
+    gshape = grid.shape
+    if len(shape) != 4 or gshape[-1] != 2 or len(gshape) not in (4, 5):
+        raise ValueError(f"bad shapes img {tuple(shape)} grid {tuple(gshape)}")
     f, h, w, c = shape
-    rows, ho, wo = grid.shape[0], grid.shape[-3], grid.shape[-2]
-    if grid.dim() == 5:
-        if tp_sz != 1 or grid.shape[1] != c or rows != f:
+    rows, ho, wo = gshape[0], gshape[-3], gshape[-2]
+    if len(gshape) == 5:
+        if tp_sz != 1 or gshape[1] != c or rows != f:
             raise ValueError(f"per-channel grids must be (F, C, Ho, Wo, 2) with tp_sz 1, got "
                              f"{tuple(grid.shape)} for img {tuple(img.shape)}, tp_sz {tp_sz}")
         if c > MAX_CHANNELS:
@@ -60,7 +63,9 @@ def _check(img: torch.Tensor, grid: torch.Tensor, tp_sz: int, dtypes, shape=None
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (a short call:
+    the MAT warps' kernel takes less time than a wrapper's host work)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor, tp_sz: int = 1) -> torch.Tensor:
@@ -72,8 +77,8 @@ def grid_sample_cuda(img: torch.Tensor, grid: torch.Tensor, tp_sz: int = 1) -> t
         raise ValueError(f"a shared grid is (rows, Ho, Wo, 2), got {tuple(grid.shape)}")
     _check(img, grid, tp_sz, (torch.float32, torch.bfloat16))
     f, h, w, c = img.shape
-    rows, ho, wo = grid.shape[:3]
-    out = torch.empty((rows, ho, wo, c), dtype=img.dtype, device=img.device)
+    rows, ho, wo, _ = grid.shape
+    out = img.new_empty((rows, ho, wo, c))
     if out.numel() == 0:
         return out
     GRID_SAMPLE.launch(rows, img.data_ptr(), None, grid.data_ptr(), out.data_ptr(),
