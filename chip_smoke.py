@@ -92,9 +92,28 @@ Phases, in order; any failure exits non-zero:
      float32 evaluator card vs CPU; K2's batch mode on the first of each
      shape of the MAT warps test_mat.sh handed it, against its plain
      version and timed beside its bound and F.grid_sample.
+ 11. converters: reference-format {pe,pg,ii}_net_0.pth files written from the
+     flagship's seeded weights (the port's rules run backwards) and loaded
+     by load_reference_checkpoints: every parameter bitwise equal, one
+     flagship predict equal to the source's; a MAT persistence pickle at 512
+     written from a MatInpainter's weights, converted by
+     convert_mat_weights and loaded by MatInpainter(weights_path=...): one
+     forward equal to the source's, bias_act once per MAT layer; each
+     conversion timed.
 Phases 7-9 also time the training loop's iterations (a batch from the
 prefetching loader, its copy, one step) with the script's loader workers
-and with one, beside the host's time to make one batch's clips.
+and with one, beside the host's time to make one batch's clips; they run
+Trainer.run and those iterations with the trainer's logger off, and then
+check the logging on a fixed batch (logging_check): Synthesizer.visuals
+alone (ms, launches, peak memory), logged against unlogged iterations in
+turns with the logging's host time split (visuals, copy, rendering,
+writing), the event files read back with every visual tag. Phase 7 also
+traces a step by profiling.trace, holds memory_stats() against the
+allocator's peak and a small float32 visuals of each mode, card against
+CPU. Phase
+10 also runs the metrics CLI with fid and fvd on test.sh's dumps, without
+weights (rfid, rfvd_proxy) and with seeded random Inception and I3D weight
+files (fid, fvd), and times both extractors on the dumps.
 With --profile DIR, phases 4, 5, 7, 8, 9 and 10 also trace one predict, one
 MAT clip, one training step of each net, one loop iteration of each and one
 evaluator iteration with torch.profiler and write the device time per span
@@ -164,6 +183,7 @@ EVAL_MAT_CLIPS = 2  # test_mat.sh clips of phase 10
 TRAIN_ITERS = 3  # Trainer.run iterations of each training phase
 TRAIN_TIMED = 5  # timed steps on one fixed batch
 LOADER_ITERS = 3  # timed loader iterations (batch, copy, step) per worker count
+LOG_TURNS = 2  # logged and unlogged iterations timed in turns, of each
 # the pre-pass computes on the card what _skip_flags computes for the TPU
 # kernels (and the permute copy K1's wrapper made before)
 PRE_REPLACES = "waldo_tpu/ops/pallas/grid_sample.py:555"
@@ -373,6 +393,114 @@ def write_cityscapes_tree(root, true_dim, flow_dim, n_seqs, n_frames=30, split="
             write_flo(os.path.join(paths["flow"], stem + ".flo"),
                       fl if k > 0 else np.zeros_like(fl))
     return os.path.join(root, dirs["rgb"])
+
+
+def reference_state_dict(syn, net):
+    """The reference's state dict of ``net`` ('pe', 'pg' or 'ii') holding
+    the port synthesizer's weights: each parameter under the rules' torch
+    name and the reference's layout (the port's own layout: both are
+    torch's), and the buffers the nets recompute (``expected_buffers``)."""
+    import torch
+    from waldo_tpu_torch.convert import _convert_leaf, _flatten, to_jax
+    from waldo_tpu_torch.models.convert import _RULES, expected_buffers
+
+    leaves = _flatten(to_jax(syn)[net]["params"])
+    sd = {tkey: torch.from_numpy(np.ascontiguousarray(_convert_leaf(leaves[fpath], kind)))
+          for tkey, fpath, kind in _RULES[net](syn.cfg)}
+    sd.update({k: torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in expected_buffers(syn.cfg, net).items()})
+    return sd
+
+
+# the port's MAT names (the flax tree's) -> the reference's torch names: the
+# inverse of waldo_tpu_torch.models.mat.convert's _RULES, applied in order
+_MAT_TORCH_NAMES = [
+    (r"enc\.b(\d+)\.", lambda m: f"enc.EncConv_Block_{2 ** int(m.group(1))}x"
+                                 f"{2 ** int(m.group(1))}."),
+    (r"first_stage\.tran([34])\.upsample\.", r"first_stage.tran\1.downsample."),
+    (r"first_stage\.tran(\d+)\.", r"first_stage.tran.\1."),
+    (r"\.block(\d+)\.", r".blocks.\1."),
+    (r"\.mlp_fc(\d)", r".mlp.fc\1"),
+    (r"first_stage\.(enc_conv|down_conv|dec_conv)(\d+)\.", r"first_stage.\1.\2."),
+    (r"to_style\.conv(\d+)\.", r"to_style.conv.\1."),
+]
+
+
+def mat_torch_key(port_key):
+    """The reference's torch state-dict key of a port MAT Generator key."""
+    import re
+
+    for pat, rep in _MAT_TORCH_NAMES:
+        port_key = re.sub(pat, rep, port_key)
+    return port_key
+
+
+def mat_reference_state_dict(net):
+    """The reference's state dict of the port MAT Generator ``net``: torch
+    names, modulated convolutions' weights as (1,O,I,kh,kw), every other
+    tensor in the port's (torch's) layout, the resampling filters too."""
+    from waldo_tpu_torch.models.mat.basic import ModulatedConv2d
+
+    modulated = {f"{name}.weight" for name, m in net.named_modules()
+                 if isinstance(m, ModulatedConv2d)}
+    return {mat_torch_key(k): (v[None] if k in modulated else v).detach().cpu().clone()
+            for k, v in net.state_dict().items()}
+
+
+class _FakePersistent:
+    """Pickles as a persistent-class module of the reference pickles does: a
+    reduce-call to torch_utils.persistence._reconstruct_persistent_obj(meta)
+    whose meta.state is the module's __dict__."""
+
+    def __init__(self, state):
+        self.state = state
+
+    def __reduce__(self):
+        meta = dict(type="class", version=6, module_src="<src>", class_name="Generator",
+                    state=self.state)
+        return sys.modules["torch_utils.persistence"]._reconstruct_persistent_obj, (meta,)
+
+
+def write_mat_pickle(sd, path):
+    """A persistence pickle of the reference's format ({"G", "G_ema"}, each a
+    tree of persistent modules with _parameters, _buffers and _modules)
+    holding the state dict ``sd``; buffers are the "noise_const",
+    "resample_filter" and "w_avg" tensors."""
+    import pickle
+    import types
+    from collections import OrderedDict
+
+    root = {}
+    for key, t in sd.items():
+        node = root
+        *mods, leaf = key.split(".")
+        for m in mods:
+            node = node.setdefault("_modules", OrderedDict()).setdefault(m, {})
+        kind = "_buffers" if leaf in ("noise_const", "resample_filter", "w_avg") else "_parameters"
+        node.setdefault(kind, OrderedDict())[leaf] = t
+
+    def wrap(node):
+        state = {"training": False, "_parameters": node.get("_parameters", OrderedDict()),
+                 "_buffers": node.get("_buffers", OrderedDict()),
+                 "_modules": OrderedDict((k, wrap(v)) for k, v in
+                                         node.get("_modules", OrderedDict()).items())}
+        return _FakePersistent(state)
+
+    tu, pers = types.ModuleType("torch_utils"), types.ModuleType("torch_utils.persistence")
+
+    def _reconstruct_persistent_obj(meta):  # never called while writing
+        raise RuntimeError
+
+    _reconstruct_persistent_obj.__module__ = "torch_utils.persistence"
+    _reconstruct_persistent_obj.__qualname__ = "_reconstruct_persistent_obj"
+    pers._reconstruct_persistent_obj = _reconstruct_persistent_obj
+    tu.persistence = pers
+    sys.modules["torch_utils"], sys.modules["torch_utils.persistence"] = tu, pers
+    try:
+        with open(path, "wb") as f:
+            pickle.dump({"G": wrap(root), "G_ema": wrap(root)}, f)
+    finally:
+        del sys.modules["torch_utils"], sys.modules["torch_utils.persistence"]
 
 
 def jsonable(obj):
@@ -2250,6 +2378,7 @@ def phase_train(dev, card_name, root, profile_dir=None):
     log(f"trainer ready in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in before)} LVD parameters)")
 
+    unlogged(tr)
     reset_launches()
     t0 = time.perf_counter()
     tr.run(num_iter=TRAIN_ITERS)
@@ -2289,6 +2418,8 @@ def phase_train(dev, card_name, root, profile_dir=None):
     check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act", "grid_sample_bwd") else 1)
               for k, v in step_launches.items()), f"launches in one step: {step_launches}")
     step_inputs = capture_pc_bwd_inputs(tr, mode, batch)
+    res["logging"] = logging_check(tr, mode, batch, "LVD")
+    res["trace"] = trace_check(tr, mode, batch, "LVD")
     res["loader"] = loader_timing(tr, mode, res["ms_per_step"], profile_dir, "_train")
 
     # pxl_vid, a loss of the mode that reads the fused frames, puts the
@@ -2316,6 +2447,7 @@ def phase_train(dev, card_name, root, profile_dir=None):
 
     res["small_step"] = small_step_check(dev, small_train_cfg(), "extract_object_loss", "pe",
                                          "LVD")
+    res["small_visuals"] = small_visuals_check(dev)
     share, e_inv = scatter_inversion_check(dev)
     log(f"scatter inversion (64 object grids, 64x64 -> 128x256), card vs CPU on the same grids: "
         f"{share:.3g} of the pixels differ by more than 1e-4 (tol 1e-4: a displacement within "
@@ -2401,6 +2533,181 @@ def loader_timing(tr, mode, step_ms, profile_dir=None, label=""):
     return res
 
 
+def unlogged(tr):
+    """Close the trainer's logger and turn logging off, so that Trainer.run
+    and the iterations timed on it are comparable with the unlogged rows
+    of earlier runs (logging_check times a logged iteration)."""
+    tr.logger.close()
+    tr.logger = None
+
+
+def logging_check(tr, mode, batch, label):
+    """The trainer's logging of ``mode`` on one fixed batch: a
+    Synthesizer.visuals call alone (ms by CUDA events, its kernel launches,
+    its peak memory), LOG_TURNS logged and unlogged iterations in turns (a
+    step, plus Trainer.log_iteration; its host time split into the visuals
+    on the card, the copy to the host, the rendering and the writing), and
+    the event files read back (every tag of the payload, the points and
+    motion among them, and the scalars, with no "could not render" line)."""
+    import contextlib
+    import io
+
+    import torch
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    from waldo_tpu_torch.ops.kernels import reset_launches
+    from waldo_tpu_torch.train import Logger
+
+    cfg = tr.cfg
+    gen = lambda: torch.Generator(device=tr.device).manual_seed(cfg.seed)
+    tr.syn.visuals(mode, batch, generator=gen())
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    arrays, pts = tr.syn.visuals(mode, batch, generator=gen())
+    torch.cuda.synchronize()
+    launches, by_key = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shapes = {k: tuple(v.shape) for k, v in {**arrays, **pts}.items()}
+    check(all(bool(torch.isfinite(v).all()) for v in {**arrays, **pts}.values()),
+          f"{label}: non-finite visuals")
+    del arrays, pts
+    vis_ms = cuda_time(lambda: tr.syn.visuals(mode, batch, generator=gen()), 3, warmup=0)
+    log(f"{label} visuals: {vis_ms:.2f} ms a call (CUDA events, 3 calls), peak memory "
+        f"{peak_gb:.2f} GB, launches {launches} by key {by_key}; payload {shapes}")
+    check(launches["warp_alpha_ctx"] == 0 and launches["grid_sample_per_channel"] >= 1
+          and launches["plane_boxes"] >= 1 and launches["grid_sample_bwd"] == 0
+          and launches["grid_sample_per_channel_bwd"] == 0,
+          f"{label}: the visuals' unfused decode launched {launches}")
+
+    # the parts of a logged iteration, timed by wrapping them
+    tr.logger = Logger(cfg.log_path)
+    parts = {"visuals": 0.0, "render_and_write": 0.0, "write": 0.0}
+
+    def timed(key, fn, sync=False):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            parts[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    tr.syn.visuals = timed("visuals", tr.syn.visuals, sync=True)
+    tr.logger.log_visuals = timed("render_and_write", tr.logger.log_visuals)
+    tr.logger.writer.add_images = timed("write", tr.logger.writer.add_images)
+    tr.logger.writer.add_scalar = timed("write", tr.logger.writer.add_scalar)
+    out = io.StringIO()
+    times = {"unlogged": [], "logged": [], "log_iteration": []}
+    try:
+        with contextlib.redirect_stdout(out):
+            for turn in range(LOG_TURNS):  # the steps and visuals are warm already
+                for logged in (False, True):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    metrics = tr.step(mode, batch, 0)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    if logged:
+                        tr.log_iteration(mode, batch, metrics, turn)
+                        torch.cuda.synchronize()
+                        times["log_iteration"].append(time.perf_counter() - t1)
+                    times["logged" if logged else "unlogged"].append(time.perf_counter() - t0)
+    finally:
+        del tr.syn.visuals  # the instance's wrapper; the method shows again
+        tr.logger.close()
+    printed = out.getvalue()
+    sys.stdout.write(printed)
+    n = LOG_TURNS
+    split = {"visuals": parts["visuals"] / n,
+             "render": (parts["render_and_write"] - parts["write"]) / n,
+             "write": parts["write"] / n}
+    split["copy_and_scalars"] = sum(times["log_iteration"]) / n - sum(split.values())
+    res = {"visuals_ms": vis_ms, "visuals_peak_gb": peak_gb, "visuals_launches": launches,
+           "visuals_launches_by_key": by_key,
+           "unlogged_iteration_ms": 1e3 * sum(times["unlogged"]) / n,
+           "logged_iteration_ms": 1e3 * sum(times["logged"]) / n,
+           "log_split_ms": {k: 1e3 * v for k, v in split.items()}}
+    log(f"{label} iteration on a fixed batch, in turns ({n} each): unlogged "
+        f"{res['unlogged_iteration_ms']:.1f} ms, logged {res['logged_iteration_ms']:.1f} ms; "
+        f"the logging's host time split " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                                       res["log_split_ms"].items()))
+    check("could not render" not in printed, f"{label}: a visual failed to render")
+
+    acc = EventAccumulator(cfg.log_path, size_guidance={"images": 0, "scalars": 0})
+    acc.Reload()
+    images = set(acc.Tags()["images"])
+    want = {f"{mode}/train/{k.split('/', 1)[1]}" for k in shapes if "/" in k}
+    want |= {f"{mode}/train/{p}{r}" for p in ("", "pred_") if f"{p}obj_pts" in shapes
+             for r in ("pts", "mot")}
+    steps = [e.step for e in acc.Scalars(f"{mode}/train/loss")]
+    log(f"{label} event files: {len(images)} image tags {sorted(images)}; loss scalar at "
+        f"steps {steps}")
+    check(want <= images, f"{label}: tags missing from the event files: {sorted(want - images)}")
+    check(steps == list(range(n)), f"{label}: loss logged at steps {steps}")
+    for t in images:
+        check(len(acc.Images(t)) == n, f"{label}: {t} logged {len(acc.Images(t))} times")
+    tr.logger = None
+    res["tags"] = sorted(images)
+    return res
+
+
+def trace_check(tr, mode, batch, label):
+    """One step of ``mode`` traced by profiling.trace (a Chrome trace in
+    the run's log dir), and profiling.memory_stats() against
+    torch.cuda.max_memory_allocated (within 1 %)."""
+    import torch
+    from waldo_tpu_torch.utils import profiling
+
+    trace_dir = os.path.join(tr.cfg.log_path, "trace")
+    torch.cuda.reset_peak_memory_stats()
+    with profiling.trace(trace_dir):
+        tr.step(mode, batch, 0)
+        torch.cuda.synchronize()
+    files = os.listdir(trace_dir)
+    peak = torch.cuda.max_memory_allocated()
+    stats = profiling.memory_stats()["cuda:0"]
+    rel = abs(stats["peak_bytes_gb"] * 2 ** 30 - peak) / peak
+    log(f"{label} profiling.trace wrote {files} "
+        f"({sum(os.path.getsize(os.path.join(trace_dir, f)) for f in files) / 1e6:.1f} MB); "
+        f"memory_stats {stats} against max_memory_allocated {peak / 2 ** 30:.3f} GiB "
+        f"(relative {rel:.2g}, tol 1e-2); provenance {profiling.provenance()}")
+    check(len(files) == 1 and os.path.getsize(os.path.join(trace_dir, files[0])) > 0,
+          f"{label}: profiling.trace wrote {files}")
+    check(rel <= 1e-2, f"{label}: memory_stats disagrees with max_memory_allocated")
+    return {"trace_mb": os.path.getsize(os.path.join(trace_dir, files[0])) / 1e6,
+            "memory_stats": stats, "max_memory_allocated_gib": peak / 2 ** 30}
+
+
+def small_visuals_check(dev):
+    """Synthesizer.visuals of the three modes, a small float32 config on the
+    card against the same on the CPU (the same seeded weights and clip):
+    every array at the small predict's tolerance, 1e-3."""
+    import torch
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.models import Synthesizer
+
+    cfg_s = small_train_cfg()
+    m = cfg_s.model
+    m.use_pg, m.use_ii, m.ii_depth, m.ii_embed_dim = True, True, 2, 16
+    m.vid_inpainting_losses = ["sharp_vid"]
+    m.pg_num_timesteps = cfg_s.data.vid_len
+    m.min_ctx_length_vid = m.max_ctx_length_vid = m.ctx_len
+    ds = create_dataset(cfg_s, phase="train", rng=random.Random(3))
+    b_np = {k: v[None] for k, v in ds[0].items() if isinstance(v, np.ndarray)}
+    syns = {d: Synthesizer(cfg_s, device=d, seed=3) for d in (dev, "cpu")}
+    errs = {}
+    for mode in ("vid_object_extractor", "vid_pose_generator", "vid_inpainting"):
+        out = {}
+        for d, syn in syns.items():
+            a, p = syn.visuals(mode, {k: torch.from_numpy(v).to(d) for k, v in b_np.items()})
+            out[d] = {k: v.float().cpu() for k, v in {**a, **p}.items()}
+        errs[mode] = max(float((out[dev][k] - out["cpu"][k]).abs().max()) for k in out["cpu"])
+    log(f"small float32 visuals, card vs CPU: max|err| per mode {errs} (tol 1e-3)")
+    check(max(errs.values()) <= 1e-3, "the visuals on the card disagree with the CPU")
+    return errs
+
+
 def restored_equal(tr, lvd_dir):
     """The trainer's LVD teacher against the "latest" slot of phase 7's run."""
     from waldo_tpu_torch.convert import to_jax
@@ -2427,6 +2734,7 @@ def run_and_check(tr, net, attr, n, label):
     module = getattr(tr.syn, attr)
     before = [p.detach().clone() for p in module.parameters()]
     lvd_before = [p.detach().clone() for p in tr.syn.lvd.parameters()]
+    unlogged(tr)
     reset_launches()
     t0 = time.perf_counter()
     tr.run(num_iter=n)
@@ -2563,6 +2871,7 @@ def phase_flp(dev, card_name, root, lvd_dir, profile_dir=None):
     check(not any(launches.values()), f"the FLP path launched a kernel: {launches}")
     batch, res = time_steps(tr, mode, "flp", profile_dir)
     check(not any(res["launches_per_step"].values()), "an FLP step launched a kernel")
+    res["logging"] = logging_check(tr, mode, batch, "FLP")
     del batch
     res["loader"] = loader_timing(tr, mode, res["ms_per_step"], profile_dir, "_flp")
     res.update(run_seconds=run_s, launches_run=launches, checkpoint_path=tr.cfg.checkpoint_path)
@@ -2805,6 +3114,7 @@ def phase_wif(dev, card_name, root, lvd_dir, profile_dir=None):
             r.update(run_seconds=run_s, launches_run=launches,
                      checkpoint_path=tr.cfg.checkpoint_path)
             if variant == "l1":
+                r["logging"] = logging_check(tr, mode, batch, "WIF")
                 pc_inputs, batch_inputs = capture_wif_sample_inputs(tr, mode, batch)
                 del batch
                 r["loader"] = loader_timing(tr, mode, r["ms_per_step"], profile_dir, "_wif")
@@ -3137,6 +3447,115 @@ def mat_warp_rows(card_name, mat_inputs):
     return rows, seen
 
 
+def write_flax_conv_npz(module, path, collection):
+    """A module of convolutions (the port's Inception or I3D) as the JAX
+    package's weight file: its flax tree, kernels channel-last, pickled
+    under "params" (with a "params" collection for Inception, as its
+    converter writes it)."""
+    tree = {}
+    for key, t in module.state_dict().items():
+        *parents, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        if leaf == "weight":  # (O, I, k...) -> (k..., I, O)
+            leaf, a = "kernel", a.transpose(tuple(range(2, a.ndim)) + (1, 0))
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, params=np.asarray({"params": tree} if collection else tree, dtype=object))
+
+
+def fid_fvd_check(dev, root, tag, vid_len, ctx_len):
+    """The metrics CLI with ssim, msssim, fid and fvd on test.sh's dumps,
+    (a) without Inception or I3D weights (the warnings; rfid and
+    rfvd_proxy from a seeded random Inception) and (b) with seeded random
+    Inception and I3D weight files in the JAX package's layout, so that fid
+    and the true fvd run (I3D on the 14 x 512 x 1024 videos, no resize); all
+    values finite. Then each extractor timed on the dumps: ms per frame for
+    Inception (16 frames a call, resized to 299), ms per video for I3D, and
+    the peak memory of each."""
+    import contextlib
+    import io
+
+    import torch
+    from waldo_tpu_torch.eval import metrics as metrics_cli
+    from waldo_tpu_torch.eval.i3d import I3D, I3DExtractor
+    from waldo_tpu_torch.eval.inception import (InceptionExtractor, InceptionV3Features,
+                                                init_random)
+
+    wdir = os.path.join(root, "fid_weights")
+    argv = [tag, str(vid_len), str(ctx_len), "--results_root", os.path.join(root, "results"),
+            "--metrics", "ssim", "msssim", "fid", "fvd"]
+    keys = {"none": ["cum_msssim", "cum_ssim", "rfid", "rfvd_proxy"],
+            "random": ["cum_msssim", "cum_ssim", "fid", "fvd"]}
+    saved = {k: os.environ.get(k) for k in ("WALDO_INCEPTION_WEIGHTS", "WALDO_I3D_WEIGHTS")}
+    res = {}
+    try:
+        for variant in ("none", "random"):
+            d = os.path.join(wdir, variant)
+            os.environ["WALDO_INCEPTION_WEIGHTS"] = os.environ["WALDO_I3D_WEIGHTS"] = d
+            t0 = time.perf_counter()
+            if variant == "random":
+                write_flax_conv_npz(init_random(InceptionV3Features(), 1),
+                                    InceptionExtractor.weights_path(), collection=True)
+                write_flax_conv_npz(init_random(I3D(), 2), I3DExtractor.weights_path(),
+                                    collection=False)
+            write_s = time.perf_counter() - t0
+            err, out = io.StringIO(), io.StringIO()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+                got = metrics_cli.main(argv)
+            cli_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            warned = ("reported as rfid, not FID" in err.getvalue(),
+                      "rfvd_proxy, NOT comparable" in err.getvalue())
+            lines = [f"{k} {v:.4g}" for k, v in got.items() if "fid" in k or "fvd" in k]
+            log(f"metrics CLI with fid and fvd, weights {variant}: {cli_s:.1f} s (weight files "
+                f"written in {write_s:.1f} s), peak memory {peak_gb:.2f} GB; " + " | ".join(lines)
+                + f"; cum_ssim {got.get('cum_ssim', float('nan')):.4f}; warnings (rfid, "
+                f"rfvd_proxy) {warned}")
+            check(sorted(got) == keys[variant] and all(np.isfinite(v) for v in got.values()),
+                  f"the metrics CLI with fid and fvd (weights {variant}) gave {got}")
+            check(warned == ((True, True) if variant == "none" else (False, False)),
+                  f"the fid / fvd warnings with weights {variant}: {warned}")
+            res[variant] = {"values": got, "cli_s": cli_s, "peak_gb": peak_gb}
+
+        # the extractors on the dumps, timed
+        real_dir = os.path.join(root, "results", tag, "real_vid")
+        vids = np.stack([metrics_cli.load_video(os.path.join(real_dir, f))
+                         for f in sorted(os.listdir(real_dir))]).astype(np.float32)
+        frames = vids.reshape((-1,) + vids.shape[2:])[:16]
+        ex, vex = InceptionExtractor.maybe_load(device=dev), I3DExtractor.maybe_load(device=dev)
+        for name, fn, n in (("inception", lambda: ex(frames), len(frames)),
+                            ("i3d", lambda: vex(vids[:1]), 1)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3 / n
+            res[name] = {"ms_per_item": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "items_a_call": n}
+        log(f"extractors on the dumps ({vids.shape[0]} videos of {vids.shape[1:]}): Inception "
+            f"{res['inception']['ms_per_item']:.3f} ms a frame ({len(frames)} frames a call, "
+            f"resized to 299x299, copies included), peak {res['inception']['peak_gb']:.2f} GB; "
+            f"I3D {res['i3d']['ms_per_item']:.2f} ms a video (one video a call), peak "
+            f"{res['i3d']['peak_gb']:.2f} GB")
+        del ex, vex, vids, frames
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    return res
+
+
 def small_eval_check(dev, root):
     """A small float32 evaluator on the card against the same evaluator on
     the CPU: small_cfg() on a Cityscapes-format tree at 64x128 (flows at
@@ -3296,6 +3715,8 @@ def phase_eval(dev, card_name, root, runs, mat_per_forward, profile_dir=None):
           f"the metrics CLI's cumulative lines: {cum}")
     res["metrics_cli"] = {"cum": cum, "seconds": metrics_s}
 
+    res["fid_fvd"] = fid_fvd_check(dev, root, tag, cfg.data.vid_len, m.ctx_len)
+
     rows, res["sample_shares"] = eval_kernel_rows(dev, card_name, launches, by_key, k1_seen,
                                                   k2_seen)
     res["small_eval"] = small_eval_check(dev, root)
@@ -3340,6 +3761,103 @@ def phase_eval(dev, card_name, root, runs, mat_per_forward, profile_dir=None):
     res["seconds"] = time.perf_counter() - t_phase
     log(f"phase 10 took {res['seconds']:.1f} s")
     return res, rows
+
+
+# ---------------------------------------------------------------------------
+# the weight converters (phase 11)
+# ---------------------------------------------------------------------------
+
+
+def phase_convert(dev, root):
+    """Weights from the reference's formats into the port, under ``root``:
+    {pe,pg,ii}_net_0.pth written in the reference's names and layouts from
+    the flagship's seeded weights (the port's own rules run backwards, the
+    buffers from expected_buffers) and loaded by load_reference_checkpoints
+    into a synthesizer of other seeded weights: every parameter bitwise
+    equal to its source, one flagship predict equal to the source's; and a
+    MAT persistence pickle at 512 written from a MatInpainter's seeded
+    weights, converted by convert_mat_weights, loaded by
+    MatInpainter(weights_path=...): one MAT forward equal to the source
+    inpainter's, with K3 once per MAT layer. Each conversion is timed."""
+    import torch
+    from waldo_tpu_torch.config import flagship_cfg
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.models.convert import load_reference_checkpoints
+    from waldo_tpu_torch.models.mat import MatInpainter
+    from waldo_tpu_torch.models.mat.convert import convert_mat_weights
+    from waldo_tpu_torch.ops.kernels import reset_launches
+
+    log("== 11. converters: reference checkpoints and the MAT pickle into the port")
+    os.makedirs(root, exist_ok=True)
+    res = {}
+    cfg = flagship_cfg()
+    src = Synthesizer(cfg, device=dev, seed=0)
+    t0 = time.perf_counter()
+    for net in src.nets():
+        torch.save(reference_state_dict(src, net), os.path.join(root, f"{net}_net_0.pth"))
+    res["pth_write_s"] = time.perf_counter() - t0
+    dst = Synthesizer(cfg, device=dev, seed=7)
+    t0 = time.perf_counter()
+    load_reference_checkpoints(dst, root, 0)
+    torch.cuda.synchronize()
+    res["pth_load_s"] = time.perf_counter() - t0
+    n_params, unequal = 0, []
+    for net, module in src.nets().items():
+        theirs = dict(dst.nets()[net].named_parameters())
+        for k, p in module.named_parameters():
+            n_params += 1
+            if not torch.equal(theirs[k], p):
+                unequal.append(f"{net}.{k}")
+    batch = flagship_batch(cfg, dev)
+    want, got = src.predict(batch), dst.predict(batch)
+    differ = [k for k, v in want.items() if torch.is_tensor(v) and not torch.equal(v, got[k])]
+    log(f"reference checkpoints: written in {res['pth_write_s']:.2f} s ("
+        f"{sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e6:.1f} MB), "
+        f"loaded by load_reference_checkpoints in {res['pth_load_s']:.2f} s; {n_params} "
+        f"parameters, {len(unequal)} unequal to the source; flagship predict outputs unequal "
+        f"to the source's: {differ}")
+    check(not unequal, f"parameters unequal after the reference round trip: {unequal[:8]}")
+    check(not differ, f"the predict from converted weights differs in {differ}")
+    del src, dst, want, got, batch
+
+    inp = MatInpainter(resolution=512, device=dev, seed=0)
+    pkl, npz = os.path.join(root, "mat_512.pkl"), os.path.join(root, "mat_512.npz")
+    t0 = time.perf_counter()
+    write_mat_pickle(mat_reference_state_dict(inp.net), pkl)
+    res["mat_pkl_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_mat_weights(pkl, npz, img_resolution=512)
+    res["mat_convert_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inp2 = MatInpainter(weights_path=npz, resolution=512, device=dev, seed=0)
+    torch.cuda.synchronize()
+    res["mat_load_s"] = time.perf_counter() - t0
+    theirs = inp2.net.state_dict()
+    unequal = [k for k, v in inp.net.state_dict().items() if not torch.equal(theirs[k], v)]
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand((1, 512, 512, 3), generator=g, device=dev) * 2 - 1
+    mask = torch.zeros((1, 512, 512, 1), device=dev)
+    mask[:, 128:320, 160:400] = 1.0
+    outs, k3 = [], []
+    for m in (inp, inp2):
+        reset_launches()
+        outs.append(m(x, mask))
+        torch.cuda.synchronize()
+        k3.append(read_launches()[0]["bias_act"])
+    err = float((outs[0] - outs[1]).abs().max())
+    log(f"MAT pickle: written in {res['mat_pkl_write_s']:.2f} s ({os.path.getsize(pkl) / 1e6:.1f} "
+        f"MB), converted by convert_mat_weights in {res['mat_convert_s']:.2f} s, loaded by "
+        f"MatInpainter(weights_path=...) in {res['mat_load_s']:.2f} s; {len(unequal)} of "
+        f"{len(theirs)} tensors unequal; one forward each: max|err| {err:.3g} (bitwise "
+        f"equal: {torch.equal(outs[0], outs[1])}), bias_act launches {k3}")
+    check(not unequal, f"MAT tensors unequal after the pickle round trip: {unequal[:8]}")
+    check(torch.equal(outs[0], outs[1]) and bool(torch.isfinite(outs[0]).all()),
+          "the MAT forward from converted weights differs from the source's")
+    check(k3 == [196, 196], f"bias_act launches per MAT forward: {k3}")
+    res.update(pth_params=n_params, mat_tensors=len(theirs), mat_bias_act_launches=k3)
+    del inp, inp2, outs
+    torch.cuda.empty_cache()
+    return res
 
 
 def main(argv=None):
@@ -3400,6 +3918,7 @@ def main(argv=None):
         eval_res, eval_rows = phase_eval(dev, name, root, runs, mat_res["bias_act_per_forward"],
                                          args.profile)
         rows += eval_rows
+        convert_res = phase_convert(dev, os.path.join(root, "convert"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
@@ -3411,6 +3930,7 @@ def main(argv=None):
                                 "per_channel": per_channel,
                                 "main": main_res, "mat": mat_res, "train": train_res,
                                 "flp": flp_res, "wif": wif_res, "eval": eval_res,
+                                "convert": convert_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

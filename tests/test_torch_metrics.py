@@ -3,7 +3,8 @@ package's on the CPU: PSNR, SSIM and MS-SSIM on the same seeded float32
 images (rtol 1e-5), MS-SSIM also under 176 px, where both take fewer scales;
 the video loader; and the ``TAG LEN CTX`` CLI on one results tree returning
 the JAX CLI's dict (rtol 1e-5), with the same LPIPS fallback when no weights
-exist and the AlexNet LPIPS when seeded random weights do.
+exist and the AlexNet LPIPS when seeded random weights do, and the same
+fallbacks of fid and fvd without their weights.
 """
 import sys
 
@@ -98,10 +99,21 @@ def test_metrics_cli_matches_jax(tmp_path, monkeypatch, capsys, metrics):
 
 
 @pytest.mark.parametrize("dist", ["fid", "fvd"])
-def test_metrics_cli_refuses_distribution_metrics(tmp_path, dist):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tmetrics.main(["x", "6", "2", "--results_root", str(tmp_path), "--metrics", "ssim", dist,
-                       "--device", "cpu"])
+def test_metrics_cli_refuses_distribution_metrics(tmp_path, monkeypatch, capsys, dist):
+    """Without Inception or I3D weights the CLI declines to report FID or
+    FVD, as the JAX CLI does: it warns and reports the relative-only rfid
+    (a seeded random Inception) or rfvd_proxy (the frame-Inception proxy)
+    instead; tests/test_torch_fid.py holds the values with weights."""
+    results = _results_tree(tmp_path, n=2, t=3)
+    monkeypatch.setenv("WALDO_INCEPTION_WEIGHTS", str(tmp_path / "none"))
+    monkeypatch.setenv("WALDO_I3D_WEIGHTS", str(tmp_path / "none"))
+    got = tmetrics.main(["now-run", "3", "1", "--results_root", results, "--metrics", "ssim",
+                         dist, "--device", "cpu"])
+    err = capsys.readouterr().err
+    name = {"fid": "rfid", "fvd": "rfvd_proxy"}[dist]
+    assert sorted(got) == sorted(["cum_ssim", name]) and np.isfinite(got[name])
+    assert {"fid": "reported as rfid, not FID",
+            "fvd": "rfvd_proxy, NOT comparable to published FVD"}[dist] in err
 
 
 @pytest.mark.parametrize("fmt", ["avi", "png"])

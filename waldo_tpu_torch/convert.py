@@ -20,6 +20,12 @@ Layout rules (the inverse of waldo_tpu/models/convert.py):
 or their gradients, as the JAX package's tree (the gradient tests and the
 checkpoints use it).
 
+``inception_from_jax(tree_np, module)`` and ``i3d_from_jax(tree_np,
+module)`` load the JAX package's FID and FVD extractors (eval/inception.py,
+eval/i3d.py), whose leaves "a/b/conv/kernel" (kh,kw,I,O) and
+"a/b/conv3d/kernel" (kt,kh,kw,I,O) fill the port's "a.b.conv.weight"
+(O,I,kh,kw) and "a.b.conv3d.weight" (O,I,kt,kh,kw), biases as they are.
+
 ``mat_from_jax(variables_np, module)`` does the same for the MAT
 ``Generator`` (models/mat) or any of its modules, which carry the flax
 names: the leaf "a/b/weight" of the ``params`` collection fills the port's
@@ -260,6 +266,45 @@ def mat_from_jax(variables_np, module: torch.nn.Module) -> None:
     if unfilled:
         raise ValueError(f"port MAT module has entries no leaf fills: {unfilled[:8]}")
     module.load_state_dict(new, strict=True)
+
+
+def _conv_from_jax(tree_np, module: torch.nn.Module, what: str) -> None:
+    """Load a flax tree of convolutions (kernels channel-last, any rank)
+    into the module of the same names, strictly."""
+    if set(tree_np) == {"params"}:
+        tree_np = tree_np["params"]
+    own = module.state_dict()
+    new = {}
+    for path, arr in _flatten(tree_np).items():
+        *parents, leaf = path.split("/")
+        arr = np.asarray(arr, np.float32)
+        if leaf == "kernel":  # (k..., I, O) -> (O, I, k...)
+            leaf, arr = "weight", arr.transpose((arr.ndim - 1, arr.ndim - 2)
+                                                + tuple(range(arr.ndim - 2)))
+        key = ".".join(parents + [leaf])
+        if key not in own:
+            raise ValueError(f"{what} leaf {path} has no port entry {key!r}")
+        if tuple(arr.shape) != tuple(own[key].shape):
+            raise ValueError(f"{what} leaf {path} {arr.shape} does not fit {key} "
+                             f"{tuple(own[key].shape)}")
+        new[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    unfilled = sorted(set(own) - set(new))
+    if unfilled:
+        raise ValueError(f"port {what} has entries no leaf fills: {unfilled[:8]}")
+    module.load_state_dict(new, strict=True)
+
+
+def inception_from_jax(tree_np, module: torch.nn.Module) -> None:
+    """Load the JAX package's InceptionV3Features tree (nested dicts of
+    numpy arrays, with or without its "params" collection) into the port's
+    ``eval.inception.InceptionV3Features``, strictly."""
+    _conv_from_jax(tree_np, module, "Inception")
+
+
+def i3d_from_jax(tree_np, module: torch.nn.Module) -> None:
+    """Load the JAX package's I3D tree into the port's ``eval.i3d.I3D``,
+    strictly."""
+    _conv_from_jax(tree_np, module, "I3D")
 
 
 def _unconvert_leaf(arr: np.ndarray, kind: str) -> np.ndarray:

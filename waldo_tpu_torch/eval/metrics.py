@@ -3,7 +3,12 @@ exist): the port's counterpart of waldo_tpu/eval/metrics.py, with the same
 protocol: per-timestep metrics over the dumped ``real_vid`` and
 ``inp_pred_vid`` videos, reported per t and cumulatively past the context.
 SSIM follows tf.image.ssim (11x11 gaussian, sigma 1.5, k1 0.01, k2 0.03,
-max_val 1); MS-SSIM the standard 5-scale power weights.
+max_val 1); MS-SSIM the standard 5-scale power weights. ``fid`` and ``fvd``
+are distances over the whole set (eval/frechet.py): FID from Inception's
+pool3 features, true FVD from I3D's, each when its converted weights exist;
+without them the CLI warns and reports ``rfid`` (a seeded random Inception)
+and ``rfvd_proxy`` (the frame-Inception proxy), for relative comparisons
+only.
 
 The gaussian filter runs as two separable passes of explicit float32
 multiply-adds, so it is full float32 on the card whatever the global TF32
@@ -11,7 +16,7 @@ settings say (the JAX package pins ``Precision.HIGHEST`` for the same).
 
 CLI, on the card unless ``--device cpu`` is given:
   python -m waldo_tpu_torch.eval.metrics VID_TAG VID_LENGTH VID_CONTEXT \\
-      [--results_root results] [--metrics ssim psnr msssim] [--device cpu]
+      [--results_root results] [--metrics ssim psnr msssim fid fvd] [--device cpu]
 """
 from __future__ import annotations
 
@@ -134,11 +139,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
 
-    dist = sorted({"fid", "fvd"} & set(args.metrics))
-    if dist:
-        raise NotImplementedError(f"the distribution metrics {dist} are not ported yet "
-                                  f"(ROADMAP.md queue 1 item 9)")
-
     lpips_fn = None
     if "lpips" in args.metrics:
         from .lpips import LPIPS
@@ -170,6 +170,48 @@ def main(argv=None):
     if not real_files or len(real_files) != len(fake_files):
         raise ValueError(f"{root}: {len(real_files)} real and {len(fake_files)} fake videos")
 
+    # distributional metrics (over the whole set, not per timestep)
+    dist_metrics = [m for m in args.metrics if m in ("fid", "fvd")]
+    args.metrics = [m for m in args.metrics if m not in ("fid", "fvd")]
+    dist_results = {}
+    if dist_metrics:
+        from .frechet import fid_videos, fvd_proxy
+        from .inception import InceptionExtractor, random_extractor
+
+        real_vids = [load_video(p) for p in real_files]
+        fake_vids = [load_video(p) for p in fake_files]
+        if "fid" in dist_metrics:
+            ex = InceptionExtractor.maybe_load(device=dev)
+            if ex is None:
+                print("WARNING: no converted Inception weights at "
+                      f"{InceptionExtractor.weights_path()} - using a seeded random-init "
+                      "extractor. Distances are RELATIVE-ONLY and reported as rfid, not FID. "
+                      "Convert with waldo_tpu_torch.eval.inception.convert_inception_weights.",
+                      file=sys.stderr, flush=True)
+                ex = random_extractor(device=dev)
+            prefix = "" if ex.name == "fid" else "r"
+            dist_results[f"{prefix}fid"] = fid_videos(ex, real_vids, fake_vids)
+        if "fvd" in dist_metrics:
+            # true FVD from I3D's video features when converted weights
+            # exist (eval/i3d.py); the frame-Inception proxy otherwise
+            from .i3d import I3DExtractor, fvd as i3d_fvd
+
+            vex = I3DExtractor.maybe_load(device=dev)
+            if vex is not None:
+                dist_results["fvd"] = i3d_fvd(vex, real_vids, fake_vids)
+            else:
+                print("WARNING: no converted I3D weights at "
+                      f"{I3DExtractor.weights_path()} - reporting the frame-Inception proxy "
+                      "rfvd_proxy, NOT comparable to published FVD. Convert with "
+                      "waldo_tpu_torch.eval.i3d.convert_i3d_weights.",
+                      file=sys.stderr, flush=True)
+                ex = InceptionExtractor.maybe_load(device=dev) or random_extractor(device=dev)
+                prefix = "" if ex.name == "fid" else "r"
+                dist_results[f"{prefix}fvd_proxy"] = fvd_proxy(ex, real_vids, fake_vids)
+            del real_vids, fake_vids
+        for k, v in dist_results.items():
+            print(f"[{k}] : {v:.4f}")
+
     fns = {m: METRICS[m] for m in args.metrics if m != "lpips"}
     if "lpips" in args.metrics:
         # LPIPS takes [-1, 1]; the videos load in [0, 1]
@@ -185,7 +227,7 @@ def main(argv=None):
                 for m in args.metrics:
                     per_t[m][t].append(float(fns[m](bb, a)[0]))
 
-    results = {}
+    results = dict(dist_results)
     for m in args.metrics:
         for t in range(args.vid_length):
             vals = per_t[m][t]

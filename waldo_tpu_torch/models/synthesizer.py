@@ -8,6 +8,7 @@ Batch layout (channel-last): vid (B,T,Hd,Wd,3) in [-1,1], lyt
 img_object_extractor), ``generate_pose_loss`` (FLP, vid_pose_generator) and
 ``inpaint_loss`` (WIF, vid_inpainting, without the GAN terms). FLP and WIF
 train against a frozen LVD teacher, run under ``torch.no_grad``.
+``visuals`` computes what the training logger renders of each mode.
 """
 from __future__ import annotations
 
@@ -528,6 +529,86 @@ class Synthesizer:
             nll = nll + metrics["lpips_vid"] * m.lambda_lpips_vid
         metrics["loss"] = nll
         return nll, {k: v.detach() for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    # visuals for the training logger
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def visuals(self, mode, batch, generator: Optional[torch.Generator] = None):
+        """What the trainer logs of ``mode`` on a batch: (arrays, pts) of
+        device tensors. arrays maps "kind/name" to a tensor, kind in {vid,
+        flow, obj_lyt, sem_lyt}; pts maps a name to control-point poses,
+        which train/logger.py renders on the host. ``generator`` draws the
+        random contexts of ctx_mode "prev_rd". The decode takes the unfused
+        branch, as the JAX package's does."""
+        m = self.cfg.model
+        vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
+        b, t = vid.shape[:2]
+        ctx_len = m.ctx_len
+        dev = vid.device
+
+        p = self.lvd_pass(self.make_input(vid, lyt, flow), ctx_len)
+        occ, obj_alpha, bg_alpha, grids = self.alpha_grid_occ(
+            p["x_obj"], p["obj_pose"], p["bg_pose"], p["occ_score"])
+        decode_input = torch.cat([vid, lyt], dim=-1)
+        arrays = {"vid/real_vid": vid, "sem_lyt/sem_lyt": lyt}
+        pts = {"obj_pts": p["obj_pose"], "bg_pts": p["bg_pose"]}
+
+        if mode in ("vid_object_extractor", "img_object_extractor"):
+            rec_output, flow_full, alpha_unflt, alpha_flt, _, _, _ = self.decode_output(
+                decode_input, grids, occ, obj_alpha, bg_alpha, p["cls"],
+                self._ctx_ts(b, t, generator), torch.arange(t, device=dev),
+                restrict_to_ctx=False)
+            if m.ctx_mode == "full":
+                idx = torch.arange(t - 1, device=dev)
+                rec_flow = flow_full[:, :, 1:][:, idx, idx]
+            else:
+                rec_flow = flow_full[:, 0, 1:]
+            arrays["vid/rec_vid"] = rec_output[..., :3]
+            arrays["flow/real_flow"] = flow
+            arrays["flow/rec_flow"] = rec_flow
+            arrays["obj_lyt/rec_obj_lyt"] = alpha_unflt
+            arrays["obj_lyt/rec_obj_lyt_flt"] = alpha_flt
+            return arrays, pts
+
+        ctx_ts = torch.arange(ctx_len, device=dev)[None, :, None].expand(b, ctx_len, t - ctx_len)
+        pred_ts = torch.arange(ctx_len, t, device=dev)
+        if mode == "vid_pose_generator":
+            ctx_mask = (torch.arange(t, device=dev)[None, :] < ctx_len).expand(b, t)
+            with annotate("flp/rollout"):
+                pred_obj, pred_bg, pred_occ = self.flp(
+                    p["obj_pose"], p["bg_pose"], p["occ_score"], p["x_obj"], p["x_bg"],
+                    p["last_obj"], p["last_bg"], ctx_mask)
+            occ2, obj_alpha2, bg_alpha2, grids2 = self.alpha_grid_occ(
+                p["x_obj"], pred_obj, pred_bg, pred_occ)
+            pred_output, _, _, alpha2, _, _, _ = self.decode_output(
+                decode_input, grids2, occ2, obj_alpha2, bg_alpha2, p["cls"], ctx_ts, pred_ts)
+            rec_output, _, _, rec_alpha, _, _, _ = self.decode_output(
+                decode_input, grids, occ, obj_alpha, bg_alpha, p["cls"], ctx_ts, pred_ts)
+            # the alpha maps are shown over the predicted frames only
+            arrays["vid/pred_vid"] = torch.cat([vid[:, :ctx_len], pred_output[..., :3]], dim=1)
+            arrays["vid/rec_vid"] = torch.cat([vid[:, :ctx_len], rec_output[..., :3]], dim=1)
+            arrays["obj_lyt/pred_obj_lyt"] = alpha2
+            arrays["obj_lyt/rec_obj_lyt"] = rec_alpha
+            pts["pred_obj_pts"] = pred_obj
+            pts["pred_bg_pts"] = pred_bg
+            return arrays, pts
+
+        if mode == "vid_inpainting":
+            rec_output, _, _, _, _, raw_output, alpha_ctx = self.decode_output(
+                decode_input, grids, occ, obj_alpha, bg_alpha, p["cls"], ctx_ts, pred_ts,
+                restrict_to_ctx=False, hd_window=ctx_len)
+            arrays["vid/rec_vid"] = rec_output[..., :3]
+            with annotate("wif/fuse_pred"):
+                arrays["vid/inp_vid"] = self.wif(raw_output)
+            # warp coverage: the most any context frame's layers cover a
+            # pixel, as a grey map in [-1, 1]
+            cov = ((alpha_ctx + 1) / 2).sum(-1, keepdim=True).amax(dim=1)
+            arrays["vid/coverage"] = cov.clamp(0, 1) * 2 - 1
+            return arrays, pts
+
+        raise ValueError(mode)
 
     # ------------------------------------------------------------------
     # vid_prediction

@@ -8,9 +8,12 @@ without the GAN losses ``adv`` and ``dis``). Only the nets of the run's
 modes take optimizer steps; the others (FLP's and WIF's LVD teacher,
 restored from ``--s_load_path``) are frozen: their parameters ask for no
 gradient. Every net is saved. The batches come from the prefetching loader,
-``cfg.data.num_workers`` threads making the clips. The TensorBoard logger and
-its visuals are not ported yet: ``logger`` is None, as on a JAX process
-other than the first.
+``cfg.data.num_workers`` threads making the clips. The TensorBoard logger
+(train/logger.py) writes under ``cfg.log_path``: each logged iteration's
+training metrics under "<mode>/train", the eval means under "vid/eval" and,
+when ``cfg.log_freq`` is set, ``Synthesizer.visuals`` of the first two clips
+(never for img_object_extractor). The visuals run on the device outside any
+``try``, so a fault there raises; only their rendering on the host is caught.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from ..data import DataLoader, InfiniteLoader, create_dataset
 from ..models import Synthesizer
 from ..utils.heartbeat import beat
 from .checkpoint import CheckpointManager, normalize_which
+from .logger import Logger
 from .train_state import NetState
 
 MODE_TO_NET = {
@@ -50,7 +54,7 @@ class Trainer:
         self.syn = Synthesizer(cfg, device=device, seed=cfg.seed)
         self.device = self.syn.device
         self.ckpt = CheckpointManager(cfg.checkpoint_path)
-        self.logger = None
+        self.logger = Logger(cfg.log_path)
         save_config(cfg)
         self._maybe_restore()
         trained = {MODE_TO_NET[mode] for mode in self._train_modes}
@@ -157,6 +161,8 @@ class Trainer:
                     # non-finite losses is still caught (and skipped meanwhile)
                     if (log or it % 25 == 0) and int(metrics["nancount"]) > 10:
                         raise ValueError(f"loss NaN for >10 consecutive steps in {mode}")
+                    if log and self.logger:
+                        self.log_iteration(mode, batch, metrics, it)
                 if log:
                     print(f"Iteration {it:05d}/{num_iter:05d} ({time.time() - t_start:.1f}s)",
                           flush=True)
@@ -190,6 +196,8 @@ class Trainer:
             if cfg.max_batch_eval_vid is not None and i + 1 >= cfg.max_batch_eval_vid:
                 break
         means = {k: float(np.mean(v)) for k, v in agg.items()}
+        if self.logger:
+            self.logger.log_scalars("vid/eval", means, it)
         print(f"[EVAL] iter {it}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
         metric = cfg.vid_metric
         if metric and metric in means:
@@ -199,3 +207,28 @@ class Trainer:
                 self.save(it, name="best_vid")
                 print(f"[EVAL] new best_vid ({metric}={score:.4f})")
         return means
+
+    # -- logging --
+
+    def log_iteration(self, mode, batch, metrics, it):
+        """A logged iteration of ``mode``: its metrics as scalars and, at
+        the explicit log cadence (``cfg.log_freq`` set), its visuals."""
+        self.logger.log_scalars(f"{mode}/train", {k: float(v) for k, v in metrics.items()}, it)
+        if self.cfg.log_freq:
+            self.log_visuals(mode, batch, it)
+
+    def log_visuals(self, mode, batch, it, max_items=2):
+        """``Synthesizer.visuals`` of the batch, its first ``max_items``
+        clips copied to the host and rendered by the logger. The contexts of
+        "prev_rd" come from a generator of their own, seeded by the
+        iteration, so logging does not move the training draws."""
+        if mode == "img_object_extractor":
+            return  # image batches lack the video shapes the renderers expect
+        generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed + it)
+        arrays, pts = self.syn.visuals(mode, batch, generator=generator)
+        host = lambda d: {k: v[:max_items].float().cpu().numpy() for k, v in d.items()}
+        cfg = self.cfg
+        self.logger.log_visuals(f"{mode}/train", host(arrays), host(pts), it,
+                                palette=cfg.data.palette, max_items=max_items,
+                                pts_geometry=(cfg.dim, cfg.width_size),
+                                ctx_len=cfg.model.ctx_len)
