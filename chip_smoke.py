@@ -3860,6 +3860,340 @@ def phase_convert(dev, root):
     return res
 
 
+# ---------------------------------------------------------------------------
+# data parallelism over processes (phase 12)
+# ---------------------------------------------------------------------------
+
+DIST_ITERS = 3  # iterations of the torchrun training run, then 2 more on resume
+DIST_TIMED = 5  # steps a turn when the step is timed under the process group and without one
+DIST_TURNS = 2
+DIST_STEPS = 2  # steps the ranks compare with world 1
+DIST_TIMEOUT_S = 300  # each torchrun command's time limit
+
+
+def torchrun(nproc, args, label):
+    """``python -m torch.distributed.run --standalone --nproc_per_node nproc
+    args`` from the repo root, in a session of its own, killed whole at
+    DIST_TIMEOUT_S; returns (seconds, its output)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc)] + list(args)
+    # the ranks meet over the loopback device (the card's machine has no network)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise RuntimeError(f"{label}: no end within {DIST_TIMEOUT_S} s; its output ends:\n"
+                           f"{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{label} exited with {proc.returncode}; its output ends:\n"
+                                f"{out[-6000:]}")
+    return seconds, out
+
+
+def dist_flags(root, *extra):
+    """train_lvd.sh's flags as phase 7 parses them, saving under ``root``."""
+    return train_lvd_flags() + ["--data.dataset", "synthetic", "--save_path", root,
+                                "--datetime", "dist"] + list(extra)
+
+
+def fixed_rows(cfg, shard):
+    """The shard's rows of one fixed global batch of synthetic training
+    clips: every row's seed drawn in order, the rank's clips made."""
+    from waldo_tpu_torch.data import collate, create_dataset
+
+    ds = create_dataset(cfg, phase="train", rng=random.Random(3))
+    draws = [ds.draw(i) for i in range(shard.total)]
+    return collate([ds.make_clip(i, draws[i])
+                    for i in range(shard.offset, shard.offset + shard.size)])
+
+
+def tf32_off():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dist_worker_nccl(out_dir, root):
+    """One rank under torchrun with NCCL (world 1): the torchrun run resumed
+    by a cont_train trainer (2 more iterations), then on one fixed batch the
+    launches of one step, its peak memory, the step and ``gradients`` timed
+    under the process group, the all-reduce of the step's buffer alone
+    (CUDA events), and then, after the group is destroyed, the same step and
+    ``gradients`` in this process without one (world 1's path, which only
+    lacks the all-reduce)."""
+    import torch
+    import torch.distributed as dist
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.ops.kernels import reset_launches
+    from waldo_tpu_torch.parallel import mesh
+    from waldo_tpu_torch.train import Trainer
+
+    tf32_off()
+    mode = "vid_object_extractor"
+    cfg = parse_cli(dist_flags(root, "--cont_train", "true", "--num_iter",
+                               str(DIST_ITERS + 2), "--log_freq", "0"))
+    tr = Trainer(cfg)
+    st = tr.states["pe"]
+    tr.run()
+    torch.cuda.synchronize()
+    res = {"backend": mesh.backend(), "world": mesh.world_size(),
+           "device": str(tr.device), "resumed_count": int(st.count),
+           "resumed_nancount": int(st.nancount), "latest_iter": tr.ckpt.latest_iter("pe")}
+    batch = tr._to_device(fixed_rows(cfg, mesh.BatchShard.of_rank(cfg.batch_size_vid)))
+    for _ in range(2):
+        tr.step(mode, batch, 0)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = tr.step(mode, batch, 0)
+    torch.cuda.synchronize()
+    res["launches_per_step"] = read_launches()[0]
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["loss"] = float(metrics["loss"])
+    loss = torch.zeros((), device=tr.device)
+
+    def timings(key):
+        res["step_ms"][key] = [cuda_time(lambda: tr.step(mode, batch, 0), DIST_TIMED, warmup=1)
+                               for _ in range(DIST_TURNS)]
+        res[f"gradients_ms_{key}"] = cuda_time(lambda: st.gradients(loss), 20)
+
+    res["step_ms"] = {}
+    timings("reduced")
+    flat = torch.ones(sum(p.numel() for p in st.params) + 1, device=tr.device)
+    res["all_reduce_bytes"] = flat.numel() * flat.element_size()
+    res["all_reduce_ms"] = cuda_time(lambda: dist.all_reduce(flat), 20)
+    res["copy_ms"] = cuda_time(lambda: flat.clone(), 20)
+    dist.destroy_process_group()
+    check(not mesh.distributed(), "the process group outlived destroy_process_group")
+    timings("local")
+    tr.train_loader = None
+    with open(os.path.join(out_dir, "nccl.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def dist_worker_ranks(out_dir, root, backend):
+    """One of several ranks (torchrun) that take DIST_STEPS steps of LVD at
+    train_lvd.sh's widths with the zero pose head on their rows of one fixed
+    global batch: gloo with every rank on card 0, or NCCL with a card each.
+    After each step the ranks hold rank 0's parameters against their own
+    (bitwise); then the step is timed. Rank 0 writes the losses, the
+    parameters, each rank's peak memory and the times."""
+    import torch
+    import torch.distributed as dist
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.parallel import mesh
+    from waldo_tpu_torch.train import NetState
+
+    tf32_off()
+    dev = "cuda:0" if backend == "gloo" else "cuda"
+    mesh.init_distributed(dev, backend=backend)
+    dev = mesh.local_device(dev)
+    cfg = parse_cli(dist_flags(root, "--s_pe_estimator_init_mode", "zero"))
+    syn = Synthesizer(cfg, device=dev, seed=cfg.seed)
+    st = NetState(syn.lvd, cfg.model)
+    shard = mesh.BatchShard.of_rank(cfg.batch_size_vid // mesh.world_size())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in fixed_rows(cfg, shard).items()
+             if isinstance(v, np.ndarray)}
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+
+    def step(it):
+        st.zero_grad()
+        loss, _ = syn.extract_object_loss(batch, it, generator=gen, shard=shard)
+        loss.backward()
+        st.apply(loss)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, equal = [], []
+    for it in range(DIST_STEPS):
+        losses.append(float(step(it).detach()))
+        flat = torch.cat([p.detach().reshape(-1) for p in st.params])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        same = torch.tensor([float(torch.equal(flat, ref))], device=dev)
+        dist.all_reduce(same, op=dist.ReduceOp.MIN)
+        equal.append(bool(same.item() == 1.0))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    params = [p.detach().cpu() for p in st.params] if mesh.is_main() else None
+    step_ms = cuda_time(lambda: step(DIST_STEPS), 3, warmup=1)
+    flat = torch.ones(sum(p.numel() for p in st.params) + 1, device=dev)
+    reduce_ms = cuda_time(lambda: dist.all_reduce(flat), 5)
+    every = [None] * mesh.world_size()
+    dist.all_gather_object(every, {"rank": mesh.rank(), "device": str(dev), "losses": losses,
+                                   "peak_gb": peak, "step_ms": step_ms,
+                                   "all_reduce_ms": reduce_ms})
+    if mesh.is_main():
+        torch.save({"backend": mesh.backend(), "world": mesh.world_size(), "equal": equal,
+                    "ranks": every, "params": params,
+                    "all_reduce_bytes": flat.numel() * flat.element_size()},
+                   os.path.join(out_dir, f"ranks_{backend}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def world1_reference(dev, root):
+    """World 1 in this process: DIST_STEPS steps on the whole fixed batch,
+    the ranks' config and draws. Returns (losses, parameters)."""
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.parallel import BatchShard
+    from waldo_tpu_torch.train import NetState
+
+    cfg = parse_cli(dist_flags(root, "--s_pe_estimator_init_mode", "zero"))
+    syn = Synthesizer(cfg, device=dev, seed=cfg.seed)
+    st = NetState(syn.lvd, cfg.model)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in fixed_rows(cfg, BatchShard.whole(cfg.batch_size_vid)).items()
+             if isinstance(v, np.ndarray)}
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    losses = []
+    for it in range(DIST_STEPS):
+        st.zero_grad()
+        loss, _ = syn.extract_object_loss(batch, it, generator=gen)
+        loss.backward()
+        st.apply(loss)
+        losses.append(float(loss.detach()))
+    params = [p.detach().cpu() for p in st.params]
+    del syn, st, batch
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def compare_ranks(got, want, label):
+    """The ranks' run against world 1: the ranks bitwise equal after each
+    step; the ranks' mean loss within 2e-4 relative of world 1's; each
+    parameter within 4e-4 (what two Adam steps at lr 1e-4 can move one, so
+    an element whose gradient sits near 0 may take the other direction),
+    and 99.9 % of each tensor's elements within 2e-6 (tests/test_torch_
+    train.py's tolerances for two steps against JAX)."""
+    w_losses, w_params = want
+    res = {"equal_after_each_step": got["equal"], "loss_rel_err": [], "ranks": got["ranks"]}
+    for it in range(DIST_STEPS):
+        mean = float(np.mean([r["losses"][it] for r in got["ranks"]]))
+        res["loss_rel_err"].append(abs(mean - w_losses[it]) / abs(w_losses[it]))
+    worst, worst_share = 0.0, 0.0
+    for g, w in zip(got["params"], w_params):
+        diff = (g - w).abs()
+        worst = max(worst, float(diff.max()))
+        worst_share = max(worst_share, float((diff > 2e-6).float().mean()))
+    res.update(param_max_err=worst, param_share_over_2e6=worst_share)
+    log(f"{label}: ranks bitwise equal after each step {got['equal']}; mean loss against world "
+        f"1 relative {['%.3g' % e for e in res['loss_rel_err']]} (tol 2e-4); parameters max|err| "
+        f"{worst:.3g} (tol 4e-4), the largest share of a tensor's elements over 2e-6 "
+        f"{worst_share:.3g} (tol 1e-3)")
+    for r in got["ranks"]:
+        log(f"  rank {r['rank']} on {r['device']}: losses {['%.6f' % v for v in r['losses']]}, "
+            f"peak {r['peak_gb']:.2f} GB, a step {r['step_ms']:.2f} ms, the {got['all_reduce_bytes']}"
+            f"-byte all-reduce {r['all_reduce_ms']:.3f} ms")
+    check(all(got["equal"]), f"{label}: the ranks' parameters differ")
+    check(max(res["loss_rel_err"]) <= 2e-4 and worst <= 4e-4 and worst_share <= 1e-3,
+          f"{label} disagrees with world 1")
+    return res
+
+
+def phase_dist(dev, root):
+    """Data parallelism over processes on this machine's cards: (a) torchrun
+    with NCCL at world 1 at train_lvd.sh's full width, through the training
+    CLI, then resumed and timed by a rank of this script; (b) two gloo ranks
+    on card 0, B = 8 split 4 + 4, against world 1 in this process; (c) NCCL
+    across the cards where there are several."""
+    import torch
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    log("== 12. distributed: torchrun ranks (train_lvd.sh, NCCL at world 1, gloo pair)")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved) while the ranks run")
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = os.path.join(root, "out")
+    os.makedirs(out_dir)
+    here = os.path.abspath(__file__)
+    res = {}
+
+    # (a) the training CLI under torchrun, NCCL, world 1
+    flags = dist_flags(root, "--num_iter", str(DIST_ITERS), "--log_freq", "0")
+    secs, out = torchrun(1, ["-m", "waldo_tpu_torch.cli.train"] + flags, "torchrun cli.train")
+    cfg_line = [ln for ln in out.splitlines() if ln.startswith("[dist]")]
+    log(f"torchrun -m waldo_tpu_torch.cli.train ({DIST_ITERS} iterations): {secs:.1f} s; "
+        f"{cfg_line}")
+    check(cfg_line and "nccl process group of 1" in cfg_line[0],
+          f"the CLI did not report an NCCL process group of 1: {out[-2000:]}")
+    runs = {d: sorted(os.listdir(os.path.join(root, d))) for d in ("checkpoints", "logs")}
+    check(all(v == ["dist-train_lvd_cityscapes"] for v in runs.values()),
+          f"run directories {runs}, not one")
+    acc = EventAccumulator(os.path.join(root, "logs", "dist-train_lvd_cityscapes"))
+    acc.Reload()
+    loss = [(e.step, e.value) for e in acc.Scalars("vid_object_extractor/train/loss")]
+    nan = [e.value for e in acc.Scalars("vid_object_extractor/train/nancount")]
+    log(f"logged losses {loss}, nancount {nan}")
+    check([s for s, _ in loss] == list(range(DIST_ITERS))
+          and all(np.isfinite(v) for _, v in loss) and nan == [0.0] * DIST_ITERS,
+          "a loss was not finite or a step was skipped")
+    res["cli"] = {"seconds": secs, "losses": loss, "nancount": nan, "runs": runs}
+
+    secs, out = torchrun(1, [here, "--dist-worker", "nccl", "--dist-root", root],
+                         "torchrun rank (resume, timing)")
+    with open(os.path.join(out_dir, "nccl.json")) as fh:
+        w = json.load(fh)
+    turns = w["step_ms"]
+    log(f"resumed rank ({secs:.1f} s): {w['backend']}, world {w['world']} on {w['device']}; "
+        f"{w['resumed_count']} steps after the slot of iteration {DIST_ITERS - 1}, latest "
+        f"slot {w['latest_iter']}; launches per step {w['launches_per_step']}; peak "
+        f"{w['peak_gb']:.2f} GB; the step under the group {turns['reduced']} ms, then in the "
+        f"same process without one {turns['local']} ms; gradients() {w['gradients_ms_reduced']:.3f} "
+        f"ms under the group, {w['gradients_ms_local']:.3f} without; the all-reduce alone "
+        f"{w['all_reduce_ms']:.4f} ms for {w['all_reduce_bytes']} bytes (a device copy of "
+        f"the buffer {w['copy_ms']:.4f} ms)")
+    check(w["backend"] == "nccl" and w["world"] == 1, "the rank's group is not NCCL at world 1")
+    check(w["resumed_count"] == 2 and w["resumed_nancount"] == 0
+          and w["latest_iter"] == DIST_ITERS + 1, "the cont_train run did not resume the slot")
+    check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act", "grid_sample_bwd") else 1)
+              for k, v in w["launches_per_step"].items()),
+          f"launches in one step under the process group: {w['launches_per_step']}")
+    res["nccl_world1"] = w
+
+    # (b) two gloo ranks on card 0, against world 1 in this process
+    secs, out = torchrun(2, [here, "--dist-worker", "gloo", "--dist-root", root],
+                         "torchrun gloo ranks")
+    got = torch.load(os.path.join(out_dir, "ranks_gloo.pt"), weights_only=False)
+    log(f"two gloo ranks on card 0 ({secs:.1f} s): backend {got['backend']}, world "
+        f"{got['world']}")
+    check(got["backend"] == "gloo" and got["world"] == 2, "the pair is not two gloo ranks")
+    t0 = time.perf_counter()
+    want = world1_reference(dev, root)
+    log(f"world 1 in this process, B = {len(got['ranks']) * 4}: {time.perf_counter() - t0:.1f} s, "
+        f"losses {['%.6f' % v for v in want[0]]}")
+    res["gloo_pair"] = compare_ranks(got, want, "gloo pair")
+    res["gloo_pair"]["seconds"] = secs
+
+    # (c) NCCL across the cards
+    n = torch.cuda.device_count()
+    if n > 1:
+        secs, out = torchrun(n, [here, "--dist-worker", "nccl-cards", "--dist-root", root],
+                             f"torchrun NCCL over {n} cards")
+        got = torch.load(os.path.join(out_dir, "ranks_nccl.pt"), weights_only=False)
+        res["nccl_cards"] = compare_ranks(got, want, f"NCCL over {n} cards")
+        res["nccl_cards"]["seconds"] = secs
+    else:
+        log("NCCL across cards: not run (this machine has one card)")
+    shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12 took {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10, help="timed predicts")
@@ -3876,6 +4210,12 @@ def main(argv=None):
     ap.add_argument("--k2-fwd", action="store_true",
                     help="only run phases 1 and 2 and then K2's forward at every row's shapes "
                          "on dense inputs (k2_fwd_study); the last line is its JSON summary")
+    ap.add_argument("--dist", action="store_true",
+                    help="only run phases 1, 2 and 12 (the distributed runs); the last line is "
+                         "its JSON summary")
+    ap.add_argument("--dist-worker", choices=["nccl", "gloo", "nccl-cards"], default=None,
+                    help="run as one rank of phase 12 under torchrun (the phase starts them)")
+    ap.add_argument("--dist-root", default=None, help="phase 12's directory, for its ranks")
     args = ap.parse_args(argv)
 
     import torch
@@ -3886,6 +4226,13 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import waldo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    if args.dist_worker == "nccl":
+        dist_worker_nccl(os.path.join(args.dist_root, "out"), args.dist_root)
+        return 0
+    if args.dist_worker:
+        dist_worker_ranks(os.path.join(args.dist_root, "out"), args.dist_root,
+                          "gloo" if args.dist_worker == "gloo" else "nccl")
+        return 0
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name, card_line = phase_device()
@@ -3898,6 +4245,14 @@ def main(argv=None):
         k2_rows, extra = k2_fwd_study(dev, name)
         print(json.dumps(jsonable({"k2_fwd": k2_rows, **extra})), flush=True)
         return 0
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
+    if args.dist:
+        try:
+            res = phase_dist(dev, os.path.join(root, "dist"))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"dist": jsonable(res)}), flush=True)
+        return 0
     errs, per_channel = phase_kernels(dev)
     main_res, k1_seen = phase_main(dev, args.iters, args.profile)
     mat_res = phase_mat(dev, args.profile)
@@ -3905,7 +4260,6 @@ def main(argv=None):
                                       mat_res["launches_by_key"], main_res["launches"],
                                       mat_res["launches"]["bias_act"], k1_seen)
     del k1_seen
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
     shutil.rmtree(root, ignore_errors=True)
     try:
         train_res, train_rows, lvd_dir = phase_train(dev, name, root, args.profile)
@@ -3919,6 +4273,7 @@ def main(argv=None):
                                          args.profile)
         rows += eval_rows
         convert_res = phase_convert(dev, os.path.join(root, "convert"))
+        dist_res = phase_dist(dev, os.path.join(root, "dist"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
@@ -3930,7 +4285,7 @@ def main(argv=None):
                                 "per_channel": per_channel,
                                 "main": main_res, "mat": mat_res, "train": train_res,
                                 "flp": flp_res, "wif": wif_res, "eval": eval_res,
-                                "convert": convert_res,
+                                "convert": convert_res, "dist": dist_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -45,9 +45,11 @@ from waldo_tpu_torch.train.checkpoint import _flatten
 from chip_smoke import (TEST_MAT_SCRIPT, TEST_SCRIPT, eval_script_flags, train_lvd_flags,
                          write_cityscapes_tree)
 from test_torch_nets import perturbed_params, tiny_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 VID_TOL = 1e-3
 NETS = {"pe": "load_path", "pg": "pg_load_path", "ii": "ii_load_path"}
+
 
 
 def eval_cfg(data_root, save_path, datetime):

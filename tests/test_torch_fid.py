@@ -37,7 +37,7 @@ import waldo_tpu_torch.eval.i3d as ti3d
 import waldo_tpu_torch.eval.inception as tinc
 import waldo_tpu_torch.eval.metrics as tmetrics
 from waldo_tpu_torch.convert import i3d_from_jax, inception_from_jax
-
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _rel(got, want):

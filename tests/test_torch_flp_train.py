@@ -27,6 +27,7 @@ from waldo_tpu.models import Synthesizer as JaxSynthesizer
 from waldo_tpu_torch.config import from_dict, to_dict
 from waldo_tpu_torch.convert import from_jax, to_jax
 from waldo_tpu_torch.models import Synthesizer
+from waldo_tpu_torch.parallel import BatchShard, RowStream
 from waldo_tpu_torch.train.checkpoint import _flatten
 
 from test_models_smoke import tiny_batch, tiny_config
@@ -164,7 +165,8 @@ def _flp_rollout(params, embed, strength, noise_seed):
         p = syn.lvd_pass(syn.make_input(batch["vid"], batch["lyt"], batch["flow"]),
                          cfg.model.ctx_len)
         ctx_mask = (torch.arange(t)[None] < cfg.model.ctx_len).expand(b, t)
-        noise = None if noise_seed is None else torch.Generator().manual_seed(noise_seed)
+        noise = None if noise_seed is None else RowStream(torch.Generator().manual_seed(noise_seed),
+                                                          BatchShard.whole(b))
         return torch.cat([o.reshape(b, -1) for o in syn.flp(
             p["obj_pose"], p["bg_pose"], p["occ_score"], p["x_obj"], p["x_bg"], p["last_obj"],
             p["last_bg"], ctx_mask, noise=noise)], dim=1)

@@ -40,10 +40,12 @@ from waldo_tpu_torch.models.mat import MatInpainter, expand_mask
 
 from test_torch_nets import perturbed_params, tiny_cfg
 from test_torch_predict import tiny_batch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL_OPS = 1e-4
 REL_CHAIN = 1e-3
 MAT_RES = 128
+
 
 
 def _t(a):

@@ -50,6 +50,7 @@ from waldo_tpu_torch.train import CheckpointManager, NetState, Trainer, normaliz
 from waldo_tpu_torch.train.checkpoint import _flatten
 
 from test_models_smoke import tiny_batch, tiny_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jgs = importlib.import_module("waldo_tpu.ops.grid_sample")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +62,7 @@ METRICS = ("abs_mov", "activity", "ce_lyt", "ce_lyt_obj", "cell_dis", "center_di
            "pts_rest_bg", "pts_rest_obj", "pxl_vid", "reg_fg", "reg_mov", "sharp_vid",
            "soft_ce_lyt", "topactivity")
 METRIC_TOL = {"float32": (1e-6, 2e-4), "fast": (1e-5, 2e-3)}
+
 
 
 def lvd_cfg(precision="float32"):
@@ -404,28 +406,60 @@ def test_parse_cli_rejects_unknown_keys():
         parse_cli(["dim", "64"])
 
 
+class _Seeded:
+    """A random stream whose every draw is ``seed``: a JAX training dataset
+    built on it makes the clip of that seed."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def randrange(self, n):
+        return self.seed
+
+
+def _jax_clip(jcfg, index, seed):
+    """The JAX package's synthetic clip at ``index`` made from ``seed`` (its
+    training phase takes a clip's seed from the stream; the clip depends on
+    the phase through the seed alone)."""
+    from waldo_tpu.data.synthetic import SyntheticDataset as JSynthetic
+
+    return JSynthetic(jcfg, phase="train", rng=_Seeded(seed))[index]
+
+
 def test_synthetic_clips_match_jax():
-    """The port's synthetic clips equal the JAX package's for the same phase,
-    index and random stream (within one process: a valid clip's seed comes
-    from Python's string hash), and so do the loaders' first batches."""
+    """The port's synthetic clips equal the JAX package's for the same index
+    and seed, and so do the loaders' first batches. A training clip's seed
+    is the stream's next draw in both; a valid or test clip's is the port's
+    ``eval_seed``, the same in every process, where the JAX package takes
+    Python's string hash, stable within one process only (ROADMAP.md
+    section 3)."""
     from waldo_tpu.data import DataLoader as JLoader
     from waldo_tpu.data.synthetic import SyntheticDataset as JSynthetic
-    from waldo_tpu_torch.data import DataLoader, create_dataset
+    from waldo_tpu_torch.data import DataLoader, SyntheticDataset, create_dataset
 
     jcfg = tiny_config()
     jcfg.data.dataset = "synthetic"
     tcfg = from_dict(jconfig.to_dict(jcfg))
     for phase, idx in (("valid", 0), ("valid", 3), ("test", 1), ("train", 5)):
-        want = JSynthetic(jcfg, phase=phase, rng=random.Random(7))[idx]
+        ds = create_dataset(tcfg, phase=phase, rng=random.Random(7))
+        seed = ds.draw(idx) if phase == "train" else SyntheticDataset.eval_seed(phase, idx)
+        if phase != "train":
+            assert ds.draw(idx) == seed
         got = create_dataset(tcfg, phase=phase, rng=random.Random(7))[idx]
+        want = (JSynthetic(jcfg, phase=phase, rng=random.Random(7))[idx] if phase == "train"
+                else _jax_clip(jcfg, idx, seed))
         assert set(got) == set(want)
+        assert got["path"] == f"synthetic_{phase}_{idx}"
         for k in ("vid", "lyt", "flow"):
             np.testing.assert_array_equal(got[k], want[k], err_msg=f"{phase} {idx} {k}")
     want = next(iter(JLoader(JSynthetic(jcfg, phase="valid"), 4, shuffle=True, seed=3,
                              num_workers=1, num_hosts=1, host_id=0)))
     got = next(iter(DataLoader(create_dataset(tcfg, phase="valid"), 4, shuffle=True, seed=3)))
     assert got["path"] == want["path"]
-    np.testing.assert_array_equal(got["vid"], want["vid"])
+    idx = [int(path.rsplit("_", 1)[1]) for path in got["path"]]
+    np.testing.assert_array_equal(
+        got["vid"], np.stack([_jax_clip(jcfg, i, SyntheticDataset.eval_seed("valid", i))["vid"]
+                              for i in idx]))
 
 
 def test_datasets_not_ported_raise():

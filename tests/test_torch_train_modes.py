@@ -22,8 +22,10 @@ from waldo_tpu_torch.train import Trainer
 from waldo_tpu_torch.train.checkpoint import _flatten
 
 from test_torch_train import ROOT, train_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODES = {"vid_pose_generator": ("pg", "flp"), "vid_inpainting": ("ii", "wif")}
+
 
 
 @pytest.fixture(scope="module")

@@ -29,11 +29,13 @@ from waldo_tpu_torch.train import Logger, Trainer
 
 from test_torch_nets import perturbed_params, tiny_cfg
 from test_torch_train import train_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = {"float32": 1e-3, "fast": 2e-2}
 MODES = ("vid_object_extractor", "vid_pose_generator", "vid_inpainting")
 # what tests/test_train.py::test_trainer_emits_visuals asks of the JAX trainer
 JAX_TAGS = ("rec_vid", "real_vid", "rec_flow", "rec_obj_lyt")
+
 
 
 def visuals_cfg(precision="float32"):

@@ -9,13 +9,20 @@ run here with the module name changed; the load paths name the port's
 checkpoint dirs (``.npz`` slots). Dumps the real, reconstructed and
 predicted videos under results/<signature>/ for the metrics CLI
 (``python -m waldo_tpu_torch.eval.metrics TAG LEN CTX``) and prints the
-mean L1, PSNR and SSIM. ``--device cpu`` runs it on the CPU.
+mean L1, PSNR and SSIM. ``--device cpu`` runs it on the CPU. Data-parallel
+over N cards of one host, one process per card (NCCL), each predicting and
+dumping its rows of every global batch of ``--batch_size_vid`` clips (N
+must divide it), the metrics averaged over the ranks (train/evaluator.py):
+
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m waldo_tpu_torch.cli.test <the same flags>
 """
 from __future__ import annotations
 
 import sys
 
 from ..config import parse_cli
+from ..parallel import is_main
 from ..train import Evaluator
 
 
@@ -27,8 +34,9 @@ def main(argv=None):
         device = argv[i + 1]
         del argv[i: i + 2]
     metrics = Evaluator(parse_cli(argv), device=device).run(dump=True)
-    for k, v in metrics.items():
-        print(f"{k}: {v:.4f}")
+    if is_main():
+        for k, v in metrics.items():
+            print(f"{k}: {v:.4f}")
     return metrics
 
 

@@ -305,7 +305,9 @@ class Config:
     vid_metric: str = ""
     cont_train: bool = False
 
-    # parallelism fields (kept for config round-trips with the JAX package)
+    # parallelism fields, kept for config round-trips with the JAX package:
+    # the port's world size comes from the launcher (parallel/mesh.py), and
+    # check_mesh refuses a "seq" axis
     mesh_shape: Optional[List[int]] = None  # default: all devices on "data"
     mesh_axes: List[str] = field(default_factory=lambda: ["data"])
     compute_dtype: str = "float32"  # or "bfloat16"
@@ -348,6 +350,24 @@ class Config:
         if not self.datetime:
             self.datetime = time.strftime("%Y-%m-%d-%H:%M:%S")
         return self
+
+
+def check_mesh(cfg: Config) -> None:
+    """The port parallelizes over data only, over the launcher's processes:
+    a "seq" axis (the JAX package's sequence sharding) of size > 1 raises.
+    ``mesh_shape`` None gives the first axis every device and the others
+    size 1, as in the JAX package. Other axes ("model", which no JAX code
+    reads) are accepted."""
+    axes = list(cfg.mesh_axes)
+    if "seq" not in axes:
+        return
+    i = axes.index("seq")
+    size = cfg.mesh_shape[i] if cfg.mesh_shape is not None else (None if i == 0 else 1)
+    if size != 1:
+        raise NotImplementedError(
+            "a 'seq' mesh axis (sequence sharding, waldo_tpu/parallel/sharding.py) is not "
+            "ported yet (ROADMAP.md queue 1 item 15); the port runs data parallelism over "
+            "torchrun's processes")
 
 
 _DATASET_DEFAULTS = {

@@ -1,13 +1,22 @@
-"""Prefetching batch loader (counterpart of waldo_tpu/data/loader.py), in one
-process: shuffled epochs from a seeded permutation, drop_last, and a
-producer thread that makes each batch's clips on a pool of ``num_workers``
-threads and keeps up to ``prefetch`` batches ready in a bounded queue.
+"""Prefetching batch loader (counterpart of waldo_tpu/data/loader.py):
+shuffled epochs from a seeded permutation, drop_last, and a producer thread
+that makes each batch's clips on a pool of ``num_workers`` threads and keeps
+up to ``prefetch`` batches ready in a bounded queue.
 
-A batch does not depend on ``num_workers``. Every dataset splits its
-draws from a shared random stream (the synthetic training clips' seeds, the
-frame datasets' augmentation and frame choice) from the work:
-``draw(index)`` runs on the producer, in batch order, and
-``make_clip(index, draws)`` on the workers.
+``batch_size`` is the global batch. Under data parallelism over ``world_size``
+processes (by default the process group's, parallel/mesh.py), rank r holds
+rows [r B/W, (r+1) B/W) of each global batch; ``len`` is the number of
+global batches, as at world 1.
+
+A batch does not depend on ``num_workers`` or the world size. Every
+dataset splits its draws from a shared random stream (the synthetic
+training clips' seeds, the frame datasets' augmentation and frame choice)
+from the work: ``draw(index)`` runs on the producer for every row of the
+global batch, in order, and ``make_clip(index, draws)`` on the workers for
+the rank's rows only, so rank r's clips are world 1's rows. (The JAX
+loader gives each host a contiguous slab of the epoch instead, and its
+hosts, which seed the same stream, make the same synthetic clips: ROADMAP.md
+section 3.)
 
 A worker's exception reaches the consumer as ``RuntimeError("data loader
 worker failed")``; a producer that ends without a result fails the
@@ -19,9 +28,11 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from ..parallel import mesh
 
 _POLL_S = 0.1  # how often a blocked producer or consumer looks at the other
 
@@ -38,7 +49,13 @@ def collate(samples) -> Dict[str, np.ndarray]:
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 num_workers: int = 4, prefetch: int = 2, drop_last: bool = True):
+                 num_workers: int = 4, prefetch: int = 2, drop_last: bool = True,
+                 world_size: Optional[int] = None, rank: Optional[int] = None):
+        self.world_size = mesh.world_size() if world_size is None else world_size
+        self.rank = mesh.rank() if rank is None else rank
+        if batch_size % self.world_size:
+            raise ValueError(f"a global batch of {batch_size} does not split over "
+                             f"{self.world_size} processes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -65,8 +82,10 @@ class DataLoader:
 
     def _make_batch(self, pool, bidx):
         ds = self.dataset
-        draws = [ds.draw(i) for i in bidx]  # the stream's draws, in order
-        return collate(list(pool.map(ds.make_clip, bidx, draws)))
+        draws = [ds.draw(i) for i in bidx]  # the stream's draws for every row, in order
+        n, w, r = len(bidx), self.world_size, self.rank
+        mine = slice(r * n // w, (r + 1) * n // w)
+        return collate(list(pool.map(ds.make_clip, bidx[mine], draws[mine])))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._epoch_indices()

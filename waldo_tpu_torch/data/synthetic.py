@@ -1,6 +1,6 @@
 """Synthetic moving-shapes clips with exact flow and layouts (the port's copy
 of waldo_tpu/data/synthetic.py, the same numbers for the same phase, index
-and random stream).
+and seed; a valid or test clip's seed is the port's own, ``eval_seed``).
 
 An offline stand-in with the real datasets' sample contract: each clip holds
 a translating textured background and 1-3 moving rectangles; the layout
@@ -8,6 +8,8 @@ marks background and object classes and the flow is the exact per-pixel
 displacement from the previous frame (normalized 2*px/W, 0 at frame 0).
 """
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 
@@ -23,11 +25,19 @@ class SyntheticDataset(BaseVideoDataset):
 
     def draw(self, index) -> int:
         """A training clip's seed is the phase stream's next draw; the
-        others' come from (phase, index), which Python's string hashing makes
-        stable within one process only."""
+        others' come from (phase, index) alone (``eval_seed``)."""
         if self.phase == "train":
             return self.rng.randrange(2 ** 31)
-        return hash((self.phase, index)) % (2 ** 31)
+        return self.eval_seed(self.phase, index)
+
+    @staticmethod
+    def eval_seed(phase, index) -> int:
+        """The seed of a valid or test clip: the same in every process, so
+        that the ranks of a data-parallel run and the runs of one
+        configuration evaluate the same clips. (The JAX package takes
+        ``hash((phase, index))``, which Python's string hashing makes stable
+        within one process only: ROADMAP.md section 3.)"""
+        return zlib.crc32(f"{phase}/{index}".encode()) % (2 ** 31)
 
     def make_clip(self, index, seed):
         """The clip at ``index`` made from ``seed``; reads no shared state,

@@ -10,12 +10,11 @@ x_obj (B,No,Lo,C), x_bg (B,L,C), ctx_mask (B,T) bool (True = context).
 Training adds the JAX package's noise where the config asks for it
 (``pg_embed_noise``: one N(0, 1) draw per clip on the prediction slots'
 initial tokens; ``pg_inject_noise``: token noise in the decoder's self
-attention), drawn from the ``noise`` generator the caller hands the forward;
-inference (no generator) is deterministic.
+attention), drawn from the ``noise`` stream the caller hands the forward (a
+``parallel.RowStream``, which draws at the global batch's shape and keeps
+the rank's rows); inference (no stream) is deterministic.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -94,7 +93,7 @@ class PoseEncoder(nn.Module):
         x = self.norm(x).reshape(b, tt, no + 1, c)
         x_init = (self.time_embed[:, :tt] + self.lay_embed).expand(b, tt, no + 1, c)
         if m.pg_embed_noise and noise is not None:
-            x_init = x_init + torch.randn((b, 1, 1, c), generator=noise, device=x.device)
+            x_init = x_init + noise.randn((b, 1, 1, c), x.device)
         x = torch.where(ctx_mask[:, :, None, None], x, x_init)
         return x, ctx_mask  # ctx_mask now includes the z slot when cat_z
 
@@ -209,9 +208,9 @@ class FLPNet(nn.Module):
         self.decode = PoseDecoder(cfg, dtype)
 
     def forward(self, obj_pose, bg_pose, occ_score, x_obj, x_bg, last_obj, last_bg, ctx_mask,
-                noise: Optional[torch.Generator] = None):
-        """``noise``: the training noise's stream (a generator on the inputs'
-        device); None runs deterministic inference."""
+                noise=None):
+        """``noise``: the training noise's stream (a RowStream on the
+        inputs' device); None runs deterministic inference."""
         z_obj = self.compress(x_obj)  # (B, No, C)
         z_bg = self.compress(x_bg[:, None])  # (B, 1, C)
         z = torch.cat([z_bg, z_obj], dim=1)  # (B, No+1, C)

@@ -9,6 +9,14 @@ img_object_extractor), ``generate_pose_loss`` (FLP, vid_pose_generator) and
 ``inpaint_loss`` (WIF, vid_inpainting, without the GAN terms). FLP and WIF
 train against a frozen LVD teacher, run under ``torch.no_grad``.
 ``visuals`` computes what the training logger renders of each mode.
+
+Under data parallelism each rank computes a loss on its rows of the global
+batch, described by a ``parallel.BatchShard`` the trainer hands over. The
+losses draw their random numbers at the global batch's shape and keep the
+rank's rows, and compute the terms that couple the batch's clips over the
+global batch (the activity terms' per-clip means are all-gathered; FLP's
+masked means count the global batch's mask), so that the ranks' mean loss
+and mean gradient are world 1's. Without a shard the batch is the whole.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 from ..eval.lpips import LPIPS
 from ..nn import init_module, resolve_dtype
 from ..ops import EdgeExtractor, gaussian_blur, resize
+from ..parallel import BatchShard, RowStream
 from ..utils import resolve_device
 from ..utils.profiling import annotate
 from .flp import FLPNet
@@ -41,10 +50,15 @@ def compute_pts_regularization(pose, num_h, num_w):
     return reg
 
 
-def _masked_mean(x, mask):
-    """Mean of x over the elements where mask (broadcastable) is True."""
-    mask = mask.expand(x.shape).to(x.dtype)
-    return (x * mask).sum() / mask.sum().clamp(min=1.0)
+def _masked_mean(x, mask, shard: BatchShard, mask_all):
+    """Mean of x over the elements where mask (broadcastable) is True, taken
+    over the global batch: ``mask_all`` is the global batch's mask, whose
+    count is the denominator (it carries no gradient), and each of the
+    shard's ``world`` ranks returns ``world`` times its rows' share, so that
+    the ranks' mean is the global batch's masked mean."""
+    num = (x * mask.expand(x.shape).to(x.dtype)).sum()
+    count = mask_all.expand((shard.total,) + tuple(x.shape[1:])).to(x.dtype).sum()
+    return (num * shard.world) / count.clamp(min=1.0)
 
 
 def _topk_mean(x, k, dim):
@@ -162,11 +176,11 @@ class Synthesizer:
         output = output[..., :-1]
         return output, flow, alpha_unflt, alpha, raw_alpha, raw_output, alpha_ctx
 
-    def _ctx_ts(self, b, t, generator=None):
+    def _ctx_ts(self, b, t, stream: RowStream):
         """Context-time indices (B, Tc, T) by ctx_mode: every frame ("full"),
         the previous frame ("prev"; frame 0's is the last), or the previous
         one plus rd_ctx_num random ones ("prev_rd", drawn from
-        ``generator``)."""
+        ``stream``)."""
         m = self.cfg.model
         dev = self.device
         if m.ctx_mode == "full":
@@ -175,7 +189,7 @@ class Synthesizer:
             raise ValueError(f"unknown ctx_mode {m.ctx_mode!r}")
         ts = torch.roll(torch.arange(t, device=dev), 1)[None, None].expand(b, 1, t)
         if m.ctx_mode == "prev_rd":
-            rd = torch.randint(0, t, (b, m.rd_ctx_num, t), device=dev, generator=generator)
+            rd = stream.randint(0, t, (b, m.rd_ctx_num, t), dev)
             ts = torch.cat([ts, rd], dim=1)
         return ts
 
@@ -184,13 +198,15 @@ class Synthesizer:
     # ------------------------------------------------------------------
 
     def extract_object_loss(self, batch, global_iter=0, is_img=False,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            shard: Optional[BatchShard] = None):
         """The LVD training loss. batch {"vid", "lyt", "flow"} on this
-        synthesizer's device; ``generator`` (a torch.Generator on that
-        device) draws the input-modality dropout (drop_input_p) and the
-        random contexts of ctx_mode "prev_rd", the only random parts.
-        Returns (loss, metrics), every metric a detached 0-d tensor; the
-        loss is differentiable in the LVD parameters."""
+        synthesizer's device, the rows ``shard`` says of the global batch;
+        ``generator`` (a torch.Generator on that device) draws the
+        input-modality dropout (drop_input_p) and the random contexts of
+        ctx_mode "prev_rd", the only random parts. Returns (loss, metrics),
+        every metric a detached 0-d tensor; the loss is differentiable in
+        the LVD parameters."""
         cfg, m = self.cfg, self.cfg.model
         if m.dropout > 0:
             raise NotImplementedError("LVD dropout is not ported: the scripts train with 0.0")
@@ -201,12 +217,13 @@ class Synthesizer:
         b, t = vid.shape[:2]
         ctx_len = 1 if is_img else m.ctx_len
         dev = vid.device
+        shard = shard or BatchShard.whole(b)
+        stream = RowStream(generator, shard)
         metrics = {}
 
         # input-modality dropout
         if m.drop_input_p > 0:
-            keep = [torch.rand((b, t), device=dev, generator=generator) > m.drop_input_p
-                    for _ in range(3)]
+            keep = [stream.rand((b, t), dev) > m.drop_input_p for _ in range(3)]
             mul_rgb, mul_lyt, mul_flow = keep
             if m.input_rgb:
                 mul_rgb = ((~mul_flow) & (~mul_lyt) & (~mul_rgb)) | mul_rgb
@@ -223,7 +240,7 @@ class Synthesizer:
             p["x_obj"], p["obj_pose"], p["bg_pose"], p["occ_score"])
 
         decode_input = torch.cat([vid, lyt], dim=-1)
-        ctx_ts = self._ctx_ts(b, t, generator)
+        ctx_ts = self._ctx_ts(b, t, stream)
         pred_ts = torch.arange(t, device=dev)
         rec_output, flow_full, alpha_unflt, alpha_flt, _, _, _ = self.decode_output(
             decode_input, grids, occ, obj_alpha, bg_alpha, p["cls"], ctx_ts, pred_ts,
@@ -254,12 +271,13 @@ class Synthesizer:
             if "obj_flow" in losses:
                 add("obj_flow", m.lambda_obj_flow)
 
-            # cluster activity
+            # cluster activity, over the global batch: each clip's mean per
+            # object, gathered from the ranks
             cs = a - 1e-6
             k = max(m.num_obj // 4, 1)
-            metrics["activity"] = _topk_mean(-cs.reshape(-1, m.num_obj).mean(0), k, 0).mean()
-            per_b = -cs.reshape(b, -1, m.num_obj).mean(1)  # B No
-            top_b = per_b.topk(max(b // 4, 1), dim=0).values  # kb No
+            per_b = shard.gather(-cs.reshape(b, -1, m.num_obj).mean(1))  # B No
+            metrics["activity"] = _topk_mean(per_b.mean(0), k, 0).mean()
+            top_b = per_b.topk(max(shard.total // 4, 1), dim=0).values  # kb No
             metrics["topactivity"] = _topk_mean(top_b, k, 1).mean()
             mul_img = m.img_mul_act_reg if is_img else 1.0
             if "activity" in losses:
@@ -442,12 +460,15 @@ class Synthesizer:
     # vid_pose_generator
     # ------------------------------------------------------------------
 
-    def generate_pose_loss(self, batch, global_iter=0, *, generator: torch.Generator):
+    def generate_pose_loss(self, batch, global_iter=0, *, generator: torch.Generator,
+                           shard: Optional[BatchShard] = None):
         """The FLP training loss: the frozen LVD teacher's poses of every
         frame, and FLP's rollout from a context of ``ctx_size`` frames
         (drawn per clip from ``generator``, which also draws FLP's training
-        noise) held to them on the frames it predicts. Returns (loss,
-        metrics); the loss is differentiable in the FLP parameters only."""
+        noise) held to them on the frames it predicts, by means over the
+        global batch's predicted frames (``shard`` names the batch's rows).
+        Returns (loss, metrics); the loss is differentiable in the FLP
+        parameters only."""
         m = self.cfg.model
         if m.dropout > 0:
             raise NotImplementedError("FLP dropout is not ported (ROADMAP.md queue 1 item 10): "
@@ -456,24 +477,29 @@ class Synthesizer:
         vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
         b, t = vid.shape[:2]
         dev = vid.device
-        ctx_size = torch.randint(m.min_ctx_length_vid, m.max_ctx_length_vid + 1, (b, 1),
-                                 device=dev, generator=generator)
-        ctx_mask = torch.arange(t, device=dev)[None, :] < ctx_size  # (B, T)
+        shard = shard or BatchShard.whole(b)
+        stream = RowStream(generator, shard)
+        ctx_all = stream.randint_global(m.min_ctx_length_vid, m.max_ctx_length_vid + 1, (b, 1),
+                                        dev)
+        pm_all = ~(torch.arange(t, device=dev)[None, :] < ctx_all)  # (B global, T)
+        ctx_mask = ~shard.rows(pm_all)  # (B, T)
 
         with torch.no_grad():  # the frozen LVD teacher
             p = self.lvd_pass(self.make_input(vid, lyt, flow), m.ctx_len)
         with annotate("flp/rollout"):
             pred_obj, pred_bg, pred_occ = self.flp(
                 p["obj_pose"], p["bg_pose"], p["occ_score"], p["x_obj"], p["x_bg"],
-                p["last_obj"], p["last_bg"], ctx_mask, noise=generator)
+                p["last_obj"], p["last_bg"], ctx_mask, noise=stream)
 
         pm = ~ctx_mask
+        pose = lambda m_: m_[:, :, None, None, None]
         metrics = {
-            "rec_obj_pose": _masked_mean((p["obj_pose"] - pred_obj).abs(),
-                                         pm[:, :, None, None, None]),
-            "rec_bg_pose": _masked_mean((p["bg_pose"] - pred_bg).abs(),
-                                        pm[:, :, None, None, None]),
-            "rec_occ_score": _masked_mean((p["occ_score"] - pred_occ).abs(), pm[:, :, None]),
+            "rec_obj_pose": _masked_mean((p["obj_pose"] - pred_obj).abs(), pose(pm), shard,
+                                         pose(pm_all)),
+            "rec_bg_pose": _masked_mean((p["bg_pose"] - pred_bg).abs(), pose(pm), shard,
+                                        pose(pm_all)),
+            "rec_occ_score": _masked_mean((p["occ_score"] - pred_occ).abs(), pm[:, :, None],
+                                          shard, pm_all[:, :, None]),
         }
         nll = torch.zeros((), device=dev)
         for name in ("rec_obj_pose", "rec_bg_pose", "rec_occ_score"):
@@ -486,13 +512,15 @@ class Synthesizer:
     # vid_inpainting
     # ------------------------------------------------------------------
 
-    def inpaint_loss(self, batch, global_iter=0, generator: Optional[torch.Generator] = None):
+    def inpaint_loss(self, batch, global_iter=0, generator: Optional[torch.Generator] = None,
+                     shard: Optional[BatchShard] = None):
         """The WIF training loss, without the GAN terms (``adv``): the frozen
         LVD teacher's layers warp the context frames to each frame after
         them (the unfused training warp, under ``torch.no_grad``), and WIF's
         fusion of them is held to the real frames by L1 (``sharp_vid``) and,
         when the weights exist, the VGG16 LPIPS (``lpips_vid``). Nothing in
-        it is random; ``generator`` is taken for the trainer's sake. Returns
+        it is random, and every term is a mean over its clips' equal parts;
+        ``generator`` and ``shard`` are taken for the trainer's sake. Returns
         (loss, metrics); the loss is differentiable in the WIF parameters
         only."""
         m = self.cfg.model
@@ -558,7 +586,8 @@ class Synthesizer:
         if mode in ("vid_object_extractor", "img_object_extractor"):
             rec_output, flow_full, alpha_unflt, alpha_flt, _, _, _ = self.decode_output(
                 decode_input, grids, occ, obj_alpha, bg_alpha, p["cls"],
-                self._ctx_ts(b, t, generator), torch.arange(t, device=dev),
+                self._ctx_ts(b, t, RowStream(generator, BatchShard.whole(b))),
+                torch.arange(t, device=dev),
                 restrict_to_ctx=False)
             if m.ctx_mode == "full":
                 idx = torch.arange(t - 1, device=dev)

@@ -9,8 +9,11 @@ dtype for the value product. Ported types: ``full``, ``cross``, ``obj`` and
 
 Training-time token noise (FLP's ``pg_inject_noise``): an attention built
 with ``noise=True`` adds ``N(0, 1) * noise_strength``, one draw per token, to
-its input when its caller hands it a ``noise`` generator (the JAX package's
-``deterministic=False`` with a "noise" stream); without one it adds none.
+its input when its caller hands it a ``noise`` stream (the JAX package's
+``deterministic=False`` with a "noise" stream): an object whose
+``randn(shape, device)`` draws, such as ``parallel.RowStream``, which draws
+at the global batch's shape and keeps the rank's rows; without one it adds
+none.
 """
 from __future__ import annotations
 
@@ -101,12 +104,12 @@ def _mha(q, k, v, num_heads: int, key_mask: Optional[torch.Tensor] = None):
     return out.transpose(1, 2).reshape(b, nq, c)
 
 
-def _add_noise(x, strength, noise: Optional[torch.Generator]):
-    """x (B, N, C) plus one N(0, 1) draw per token from ``noise`` times
-    ``strength``; x itself where either is None."""
+def _add_noise(x, strength, noise):
+    """x (B, N, C) plus one N(0, 1) draw per token from the stream
+    ``noise`` times ``strength``; x itself where either is None."""
     if strength is None or noise is None:
         return x
-    eps = torch.randn(tuple(x.shape[:2]) + (1,), generator=noise, device=x.device)
+    eps = noise.randn(tuple(x.shape[:2]) + (1,), x.device)
     return x + eps * strength
 
 

@@ -7,8 +7,14 @@ videos under ``cfg.result_path/<name>/vid_<id>`` for the metrics CLI
 (``python -m waldo_tpu_torch.eval.metrics``), and returns the means of L1,
 PSNR and SSIM over the predicted and reconstructed frames. The nets restore
 from the port's ``.npz`` checkpoint slots (``--s_load_path``,
-``--s_pg_load_path``, ``--s_ii_load_path``). One process: a dump's id is
-``i * B + b`` for clip b of batch i.
+``--s_pg_load_path``, ``--s_ii_load_path``).
+
+Under torchrun (cli/test.py) it runs data-parallel, one process per card
+(parallel/mesh.py): rank r of W predicts rows [r B/W, (r+1) B/W) of each
+global batch of B clips and dumps them as ``(i W + r) B/W + b`` for its row
+b of batch i, which is world 1's id ``i B + r B/W + b`` of the same clip;
+``run`` returns the metric means over the ranks, the same dict on every
+rank as at world 1. ``iteration_times`` stays the rank's own.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from ..convert import from_jax, to_jax
 from ..data import DataLoader, create_dataset
 from ..eval.metrics import psnr, ssim
 from ..models import Synthesizer
+from ..parallel import mesh
 from ..utils.heartbeat import beat
 from ..utils.profiling import annotate
 from .checkpoint import CheckpointManager, normalize_which
@@ -63,6 +70,7 @@ def save_video_frames(vid: np.ndarray, path: str, fps: int = 4) -> str:
 
 class Evaluator:
     def __init__(self, cfg: Config, device="cuda"):
+        device = mesh.setup(cfg, device)
         self.cfg = cfg
         self.syn = Synthesizer(cfg, device=device, seed=cfg.seed)
         self.device = self.syn.device
@@ -121,7 +129,8 @@ class Evaluator:
         try:
             i = 0
             while max_batches is None or i < max_batches:
-                beat(i)  # liveness signal for a supervisor's stall watchdog
+                if mesh.is_main():
+                    beat(i)  # liveness signal for a supervisor's stall watchdog
                 t0 = time.perf_counter()
                 with annotate("eval/batch"):
                     batch = next(loader, None)
@@ -134,7 +143,8 @@ class Evaluator:
                 i += 1
         finally:
             loader.close()  # stops the loader's producer
-        return {k: float(np.mean(v)) for k, v in metrics.items()}
+        means = {k: float(np.mean(v)) for k, v in metrics.items()}
+        return {k: float(v) for k, v in mesh.mean_over_ranks(means, self.device).items()}
 
     def step(self, i: int, batch, metrics: Dict[str, list], dump: bool = True):
         """One iteration on loader batch ``i`` (numpy arrays): its copy to the
@@ -163,13 +173,15 @@ class Evaluator:
             os.makedirs(folder, exist_ok=True)
             vids = out[name]
             for b in range(vids.shape[0]):
-                vid_id = i * vids.shape[0] + b
+                # the JAX package's rank-aware id: world 1's for the same clip
+                vid_id = (i * mesh.world_size() + mesh.rank()) * vids.shape[0] + b
                 fmt = save_video_frames(vids[b], os.path.join(folder, f"vid_{vid_id:05d}.mp4"),
                                         fps=4)
                 if self.dump_format is None:
                     self.dump_format = fmt
-                    print(f"[eval] videos are dumped as {fmt} under {self.cfg.result_path}",
-                          flush=True)
+                    if mesh.is_main():
+                        print(f"[eval] videos are dumped as {fmt} under "
+                              f"{self.cfg.result_path}", flush=True)
 
     def _accumulate_metrics(self, out: Dict[str, torch.Tensor], metrics: Dict[str, list]):
         """L1, PSNR and SSIM of the predicted and reconstructed frames past

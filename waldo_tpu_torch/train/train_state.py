@@ -14,10 +14,24 @@ A non-finite loss skips the step: the gradients are zeroed, and parameters,
 moments and step count keep their old values through ``torch.where`` on the
 card, so no step waits for the host. ``nancount`` counts consecutive skipped
 steps on the card; the trainer reads it now and then.
+
+Under a process group (parallel/mesh.py) the step reduces the gradients
+itself, in place of DDP, whose wrapper would reduce nothing here: the losses
+call the nets by their methods, not their ``forward``. The gradients and the
+rank's non-finite flag go into one flat buffer and one all-reduce a step;
+every rank then applies the ranks' mean gradient, or skips when any rank's
+loss was not finite. The parameters are broadcast from rank 0 once, at
+construction, as DDP does. Without a process group the step is the same
+path without the all-reduce.
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh
 
 
 class NetState:
@@ -40,18 +54,35 @@ class NetState:
         self.nancount = torch.zeros((), dtype=torch.int32, device=dev)
         self.lr, self.b1, self.b2, self.eps = mcfg.lr, mcfg.beta1, mcfg.beta2, 1e-8
         self.clip = mcfg.clip_value
+        mesh.broadcast_tensors_(self.params)
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
 
     @torch.no_grad()
+    def gradients(self, loss: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """The step's gradients, zero where it is skipped, and whether to take
+        it (a 0-d bool on the card), from the parameters' ``.grad`` and
+        ``loss``: under a process group the mean over the ranks, skipped on
+        every rank if any rank's loss is not finite."""
+        parts = [(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1).float()
+                 for p in self.params]
+        parts.append((~torch.isfinite(loss.detach())).float().reshape(1))
+        flat = torch.cat(parts)
+        if mesh.distributed():
+            dist.all_reduce(flat)
+        finite = flat[-1] == 0
+        flat = torch.where(finite, flat[:-1] / mesh.world_size(), 0.0)
+        grads = [v.view_as(p).to(p.dtype)
+                 for p, v in zip(self.params, flat.split([p.numel() for p in self.params]))]
+        return grads, finite
+
+    @torch.no_grad()
     def apply(self, loss: torch.Tensor) -> None:
         """One optimizer step from the parameters' ``.grad``, skipped where
-        ``loss`` is not finite."""
-        finite = torch.isfinite(loss.detach())
-        grads = [torch.zeros_like(p) if p.grad is None else
-                 torch.where(finite, p.grad, torch.zeros_like(p.grad)) for p in self.params]
+        ``loss`` (any rank's, under a process group) is not finite."""
+        grads, finite = self.gradients(loss)
         if self.clip > 0:
             g_norm = torch.sqrt(sum((g ** 2).sum() for g in grads))
             keep = g_norm < self.clip

@@ -14,6 +14,16 @@ training metrics under "<mode>/train", the eval means under "vid/eval" and,
 when ``cfg.log_freq`` is set, ``Synthesizer.visuals`` of the first two clips
 (never for img_object_extractor). The visuals run on the device outside any
 ``try``, so a fault there raises; only their rendering on the host is caught.
+
+Under torchrun (cli/train.py) it runs data-parallel, one process per card
+(parallel/mesh.py): each rank steps on its rows of the global batch
+``cfg.batch_size_vid`` and the step reduces the gradients over the ranks
+(train_state.py). Rank 0's ``cfg.datetime`` names the run on every rank;
+rank 0 alone builds the logger, saves the config and the checkpoints, and
+prints, and the ranks wait for each save. Logged training metrics and the
+eval means are means over the ranks, so every rank takes the same
+"best_vid" decision; ``nancount`` is the same on every rank, so the abort
+after 10 skipped steps is too.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from ..config import Config, save_config
 from ..convert import from_jax, to_jax
 from ..data import DataLoader, InfiniteLoader, create_dataset
 from ..models import Synthesizer
+from ..parallel import mesh
 from ..utils.heartbeat import beat
 from .checkpoint import CheckpointManager, normalize_which
 from .logger import Logger
@@ -42,6 +53,11 @@ MODE_TO_NET = {
 
 class Trainer:
     def __init__(self, cfg: Config, device="cuda"):
+        device = mesh.setup(cfg, device)
+        self.is_main = mesh.is_main()
+        if self.is_main and mesh.distributed():
+            print(f"[dist] {mesh.backend()} process group of {mesh.world_size()}; global batch "
+                  f"{cfg.batch_size_vid}", flush=True)
         self.cfg = cfg
         self._train_modes = list(cfg.vid_modes) + list(cfg.img_modes)
         for mode in self._train_modes:
@@ -54,8 +70,9 @@ class Trainer:
         self.syn = Synthesizer(cfg, device=device, seed=cfg.seed)
         self.device = self.syn.device
         self.ckpt = CheckpointManager(cfg.checkpoint_path)
-        self.logger = Logger(cfg.log_path)
-        save_config(cfg)
+        self.logger = Logger(cfg.log_path) if self.is_main else None
+        if self.is_main:
+            save_config(cfg)
         self._maybe_restore()
         trained = {MODE_TO_NET[mode] for mode in self._train_modes}
         self.states: Dict[str, NetState] = {}
@@ -65,7 +82,8 @@ class Trainer:
             else:
                 module.requires_grad_(False)
         # the losses' random draws (input dropout, "prev_rd" contexts, FLP's
-        # context lengths and training noise)
+        # context lengths and training noise), made alike on every rank at
+        # the global batch's shape
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.train_loader = None
         self.valid_loader = None
@@ -87,16 +105,21 @@ class Trainer:
                 trees[label] = self.ckpt.restore(label, trees[label], which=which,
                                                  load_path=load_path)
                 restored = True
-                print(f"[ckpt] restored {label} ({which}) from "
-                      f"{load_path or self.cfg.checkpoint_path}")
+                if self.is_main:
+                    print(f"[ckpt] restored {label} ({which}) from "
+                          f"{load_path or self.cfg.checkpoint_path}")
             except FileNotFoundError:
-                print(f"[ckpt] no checkpoint for {label}, training from scratch")
+                if self.is_main:
+                    print(f"[ckpt] no checkpoint for {label}, training from scratch")
         if restored:
             from_jax(trees, self.syn)
 
     def save(self, it, name=None):
-        for net, tree in to_jax(self.syn).items():
-            self.ckpt.save(net, tree, it, name=name)
+        """Rank 0 writes every net's slot; every rank waits for it."""
+        if self.is_main:
+            for net, tree in to_jax(self.syn).items():
+                self.ckpt.save(net, tree, it, name=name)
+        mesh.barrier()
 
     # -- steps --
 
@@ -105,16 +128,19 @@ class Trainer:
                 for k, v in batch.items() if isinstance(v, np.ndarray)}
 
     def _loss(self, mode, batch, it, generator):
+        # the batch is this rank's rows of the global batch
+        shard = mesh.BatchShard.of_rank(batch["vid"].shape[0])
         if mode == "vid_pose_generator":
-            return self.syn.generate_pose_loss(batch, it, generator=generator)
+            return self.syn.generate_pose_loss(batch, it, generator=generator, shard=shard)
         if mode == "vid_inpainting":
-            return self.syn.inpaint_loss(batch, it, generator=generator)
+            return self.syn.inpaint_loss(batch, it, generator=generator, shard=shard)
         return self.syn.extract_object_loss(batch, it, is_img=mode.startswith("img"),
-                                            generator=generator)
+                                            generator=generator, shard=shard)
 
     def step(self, mode, batch, it):
-        """One optimizer step of ``mode``'s net on a batch of device tensors.
-        Returns its metrics as 0-d device tensors, with ``nancount``."""
+        """One optimizer step of ``mode``'s net on a batch of device tensors
+        (the rank's rows). Returns its metrics, the rank's, as 0-d device
+        tensors, with ``nancount``."""
         state = self.states[MODE_TO_NET[mode]]
         state.zero_grad()
         loss, metrics = self._loss(mode, batch, it, self.generator)
@@ -150,7 +176,8 @@ class Trainer:
         t_start = time.time()
         try:
             for it in range(start_iter, num_iter):
-                beat(it)  # liveness signal for a supervisor's stall watchdog
+                if self.is_main:
+                    beat(it)  # liveness signal for a supervisor's stall watchdog
                 log = (cfg.log_freq and it % cfg.log_freq == 0) or it < 10 or (
                     it < 1000 and it % 100 == 0)
                 for mode in self._train_modes:
@@ -161,9 +188,11 @@ class Trainer:
                     # non-finite losses is still caught (and skipped meanwhile)
                     if (log or it % 25 == 0) and int(metrics["nancount"]) > 10:
                         raise ValueError(f"loss NaN for >10 consecutive steps in {mode}")
+                    if log:
+                        metrics = mesh.mean_over_ranks(metrics, self.device)
                     if log and self.logger:
                         self.log_iteration(mode, batch, metrics, it)
-                if log:
+                if log and self.is_main:
                     print(f"Iteration {it:05d}/{num_iter:05d} ({time.time() - t_start:.1f}s)",
                           flush=True)
                 if eval_every and it > 0 and it % eval_every == 0:
@@ -175,12 +204,13 @@ class Trainer:
         finally:
             self.train_loader.close()  # stops the producer thread
         self.save(num_iter - 1, name="latest")
-        print("Training was successfully finished.")
+        if self.is_main:
+            print("Training was successfully finished.")
 
     def evaluate(self, it):
         """Mean metrics of the vid modes over the eval phase (at most
-        max_batch_eval_vid batches); a lower ``vid_metric`` than the best so
-        far saves the "best_vid" slot."""
+        max_batch_eval_vid global batches), over the ranks too; a lower
+        ``vid_metric`` than the best so far saves the "best_vid" slot."""
         cfg = self.cfg
         if self.valid_loader is None:
             ds = create_dataset(cfg, phase=cfg.data.eval_phase)
@@ -196,16 +226,20 @@ class Trainer:
             if cfg.max_batch_eval_vid is not None and i + 1 >= cfg.max_batch_eval_vid:
                 break
         means = {k: float(np.mean(v)) for k, v in agg.items()}
+        means = {k: float(v) for k, v in mesh.mean_over_ranks(means, self.device).items()}
         if self.logger:
             self.logger.log_scalars("vid/eval", means, it)
-        print(f"[EVAL] iter {it}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
+        if self.is_main:
+            print(f"[EVAL] iter {it}: "
+                  + " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
         metric = cfg.vid_metric
         if metric and metric in means:
             score = means[metric]
             if self._best_vid is None or score < self._best_vid:
                 self._best_vid = score
                 self.save(it, name="best_vid")
-                print(f"[EVAL] new best_vid ({metric}={score:.4f})")
+                if self.is_main:
+                    print(f"[EVAL] new best_vid ({metric}={score:.4f})")
         return means
 
     # -- logging --
