@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--iters N] [--out results.json] [--profile DIR]
     python3 chip_smoke.py --k1-stress REPS [--k1-cases N]
     python3 chip_smoke.py --k2-fwd
+    python3 chip_smoke.py --gan [--out results.json]
 
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
@@ -100,9 +101,24 @@ Phases, in order; any failure exits non-zero:
      convert_mat_weights and loaded by MatInpainter(weights_path=...): one
      forward equal to the source's, bias_act once per MAT layer; each
      conversion timed.
+ 12. data parallelism over processes (phase_dist, also alone with --dist).
+ 13. WIF adversarial training: train_wif.sh's flags with the GAN losses
+     ("sharp_vid lpips_vid adv dis") and the adaptive lambda, at the
+     script's width (B=8, 5 frames loaded at 512x1024, UNet depth 6, embed
+     512, float32 nets, "fast" sampling), phase 7's teacher and phase 9's
+     seeded random LPIPS weights: Trainer.run (strict launch counts: K2',
+     K2's batch mode and the pre-pass once in each G and each D step), the G
+     step (adv with lambda) and the D step timed on one batch, phase 9b's
+     plain WIF step timed in turns with the G step, a GAN iteration (two
+     loader batches) with the script's 8 workers, peak memory; K2', K2 and
+     the pre-pass against their plain versions on the D step's decode,
+     timed beside their bounds; the training CLI under torchrun (NCCL, world
+     1); Synthesizer.decode_layer on phase 7's batch against its plain
+     samples; small float32 G and D steps card vs CPU, lambda included.
 Phases 7-9 also time the training loop's iterations (a batch from the
 prefetching loader, its copy, one step) with the script's loader workers
-and with one, beside the host's time to make one batch's clips; they run
+and (phases 7, 8) with one, beside the host's time to make one batch's
+clips; they run
 Trainer.run and those iterations with the trainer's logger off, and then
 check the logging on a fixed batch (logging_check): Synthesizer.visuals
 alone (ms, launches, peak memory), logged against unlogged iterations in
@@ -130,6 +146,8 @@ the MAT warps' rows also split a call's host time (k2_host_split).
 With --k1-stress REPS only phase 1 runs, then phase 3's flagship cases of
 the fused warp REPS times each into outputs that start as NaN (k1_stress);
 the last line is its JSON summary.
+With --gan only phases 1, 2 and 13 run, the teacher a seeded LVD slot at
+train_lvd.sh's flags (gan_teacher); the last line is its JSON summary.
 With --k2-fwd only phases 1 and 2 run, then K2's forward on its edge cases
 and at every row's shapes on dense inputs (k2_fwd_study, with the L2 test:
 a texture shared by tp_sz 14 grid rows against its 56 copies); the last
@@ -2465,13 +2483,15 @@ def phase_train(dev, card_name, root, profile_dir=None):
 # ---------------------------------------------------------------------------
 
 
-def loader_timing(tr, mode, step_ms, profile_dir=None, label=""):
+def loader_timing(tr, mode, step_ms, profile_dir=None, label="", ways=None):
     """Trainer.run's loop body (a batch, its copy to the card, one optimizer
-    step) for LOADER_ITERS iterations after one warm-up, three ways: the
-    prefetching loader with the script's workers and with one, and batches
-    made in the consumer's thread, a batch's clips in order (a loader
-    without prefetch); and the host's time to make one batch's clips one by
-    one. Under --profile, one iteration of each way is traced (its idle
+    step; for a list of modes, a batch and a step of each in turn) for
+    LOADER_ITERS iterations after one warm-up, three ways (or ``ways``, a
+    tuple of worker counts, 0 for the consumer's thread): the prefetching
+    loader with the script's workers and with one, and batches made in the
+    consumer's thread, a batch's clips in order (a loader without
+    prefetch); and the host's time to make one batch's clips one by one.
+    Under --profile, one iteration of each way is traced (its idle
     share)."""
     import torch
     from waldo_tpu_torch.data import DataLoader, InfiniteLoader, collate, create_dataset
@@ -2488,7 +2508,8 @@ def loader_timing(tr, mode, step_ms, profile_dir=None, label=""):
             yield collate([ds[j % len(ds)] for j in range(k, k + b)])
             k += b
 
-    for workers in (cfg.data.num_workers, 1, 0):
+    modes = [mode] if isinstance(mode, str) else list(mode)
+    for workers in ways or (cfg.data.num_workers, 1, 0):
         if workers:
             loader = InfiniteLoader(DataLoader(create_dataset(cfg, phase="train"), b,
                                                shuffle=True, seed=cfg.seed, num_workers=workers))
@@ -2499,11 +2520,12 @@ def loader_timing(tr, mode, step_ms, profile_dir=None, label=""):
         waits = []
 
         def one():
-            t0 = time.perf_counter()
-            batch = next_batch()
-            t1 = time.perf_counter()
-            tr.step(mode, tr._to_device(batch), 0)
-            waits.append((t1 - t0, time.perf_counter() - t1))
+            for m in modes:
+                t0 = time.perf_counter()
+                batch = next_batch()
+                t1 = time.perf_counter()
+                tr.step(m, tr._to_device(batch), 0)
+                waits.append((t1 - t0, time.perf_counter() - t1))
 
         try:
             one()
@@ -2518,10 +2540,11 @@ def loader_timing(tr, mode, step_ms, profile_dir=None, label=""):
                     if profile_dir else None)
         finally:
             close()
+        n_w = LOADER_ITERS * len(modes)
         r = res[key] = {
             "iteration_s": it_s,
-            "loader_wait_s": sum(w for w, _ in waits[:LOADER_ITERS]) / LOADER_ITERS,
-            "copy_and_step_host_s": sum(c for _, c in waits[:LOADER_ITERS]) / LOADER_ITERS,
+            "loader_wait_s": sum(w for w, _ in waits[:n_w]) / LOADER_ITERS,
+            "copy_and_step_host_s": sum(c for _, c in waits[:n_w]) / LOADER_ITERS,
             "idle_share_profiled": None if prof is None else prof["idle_share"]}
         log(f"loader, {key.replace('_', ' ')}: {it_s * 1e3:.1f} ms an iteration over "
             f"{LOADER_ITERS} (waiting on the loader {r['loader_wait_s'] * 1e3:.1f} ms, copy + "
@@ -2720,19 +2743,19 @@ def restored_equal(tr, lvd_dir):
     return set(now) == set(want) and all(np.array_equal(now[k], want[k]) for k in want)
 
 
-def run_and_check(tr, net, attr, n, label):
-    """Trainer.run(n) of a mode that trains ``net`` (the synthesizer's
-    ``attr``) against the frozen LVD teacher: no skipped step, every
-    parameter of the net moved, none of LVD's, no gradient on LVD, and the
-    "latest" slots of both nets restore equal. Returns (seconds, launches,
+def run_and_check(tr, nets, n, label):
+    """Trainer.run(n) of modes that train ``nets`` ({net: the synthesizer's
+    attribute}) against the frozen LVD teacher: no skipped step, every
+    parameter of the nets moved, none of LVD's, no gradient on LVD, and the
+    "latest" slots of every net restore equal. Returns (seconds, launches,
     launches by key)."""
     import torch
     from waldo_tpu_torch.convert import to_jax
     from waldo_tpu_torch.ops.kernels import reset_launches
     from waldo_tpu_torch.train.checkpoint import _flatten
 
-    module = getattr(tr.syn, attr)
-    before = [p.detach().clone() for p in module.parameters()]
+    before = {net: [p.detach().clone() for p in getattr(tr.syn, attr).parameters()]
+              for net, attr in nets.items()}
     lvd_before = [p.detach().clone() for p in tr.syn.lvd.parameters()]
     unlogged(tr)
     reset_launches()
@@ -2741,37 +2764,43 @@ def run_and_check(tr, net, attr, n, label):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches, by_key = read_launches()
-    st = tr.states[net]
+    counts = {net: (int(tr.states[net].count), int(tr.states[net].nancount)) for net in nets}
     log(f"{label}: Trainer.run({n}) {run_s:.1f} s; launches {launches} by key {by_key}; step "
-        f"count {int(st.count)}, nancount {int(st.nancount)}")
-    check(list(tr.states) == [net], f"optimizer states for {list(tr.states)}, not only {net}")
-    check(int(st.nancount) == 0 and int(st.count) == n, "a step was skipped (non-finite loss)")
-    unmoved = [k for (k, p), b in zip(module.named_parameters(), before) if torch.equal(p, b)]
+        f"count and nancount {counts}")
+    check(sorted(tr.states) == sorted(nets),
+          f"optimizer states for {list(tr.states)}, not only {list(nets)}")
+    check(all(c == (n, 0) for c in counts.values()), "a step was skipped (non-finite loss)")
+    for net, attr in nets.items():
+        named = getattr(tr.syn, attr).named_parameters()
+        unmoved = [k for (k, p), b in zip(named, before[net]) if torch.equal(p, b)]
+        log(f"{len(before[net]) - len(unmoved)} of {len(before[net])} {attr} parameter tensors "
+            f"changed")
+        check(not unmoved, f"{attr} parameters that did not change: {unmoved}")
     lvd_moved = [k for (k, p), b in zip(tr.syn.lvd.named_parameters(), lvd_before)
                  if not torch.equal(p, b)]
-    log(f"{len(before) - len(unmoved)} of {len(before)} {attr} parameter tensors changed, "
-        f"{len(lvd_moved)} of {len(lvd_before)} LVD ones")
-    check(not unmoved, f"{attr} parameters that did not change: {unmoved}")
+    log(f"{len(lvd_moved)} of {len(lvd_before)} LVD parameter tensors changed")
     check(not lvd_moved and all(p.grad is None for p in tr.syn.lvd.parameters()),
           f"the frozen LVD teacher changed or holds gradients: {lvd_moved}")
-    for label_ in ("pe", net):
+    for label_ in ["pe"] + list(nets):
         now = _flatten(to_jax(tr.syn)[label_])
         back = _flatten(tr.ckpt.restore(label_, to_jax(tr.syn)[label_], "latest", strict=True))
         check(all(np.array_equal(now[k], back[k]) for k in now),
               f"the latest {label_} slot restores unequal")
-    log(f"latest pe and {net} slots restore equal")
+    log(f"latest pe and {' and '.join(nets)} slots restore equal")
     return run_s, launches, by_key
 
 
-def time_steps(tr, mode, label, profile_dir=None):
-    """TRAIN_TIMED steps on one fixed batch after 2 warm-up steps (CUDA
-    events): ms per step, clips/s, the peak memory of one step, its metrics;
-    under --profile, one step traced."""
+def time_steps(tr, mode, label, profile_dir=None, batch=None):
+    """TRAIN_TIMED steps on one fixed batch (the loader's next, or
+    ``batch``) after 2 warm-up steps (CUDA events): ms per step, clips/s,
+    the peak memory of one step, its metrics; under --profile, one step
+    traced."""
     import torch
     from waldo_tpu_torch.ops.kernels import reset_launches
 
-    batch = tr._to_device(tr.train_loader.next())
-    tr.train_loader.close()
+    if batch is None:
+        batch = tr._to_device(tr.train_loader.next())
+        tr.train_loader.close()
     for _ in range(2):
         tr.step(mode, batch, 0)
     torch.cuda.synchronize()
@@ -2797,10 +2826,11 @@ def time_steps(tr, mode, label, profile_dir=None):
                    "launches_per_step": step_launches, "profile": prof}
 
 
-def small_step_check(dev, cfg_s, loss_name, net, label):
+def small_step_check(dev, cfg_s, loss_name, net, label, loss_kw=None, metrics=()):
     """A small float32 training step on the card against the same step on
     the CPU (the same seeded weights and clip), per leaf of ``net``'s
-    gradient at phase 7's tolerance, 1e-4 on the loss."""
+    gradient at phase 7's tolerance, 1e-4 on the loss and on the named
+    ``metrics``; ``loss_kw`` goes to the loss."""
     import torch
     from waldo_tpu_torch.convert import to_jax
     from waldo_tpu_torch.data import create_dataset
@@ -2814,11 +2844,13 @@ def small_step_check(dev, cfg_s, loss_name, net, label):
     for d in (dev, "cpu"):  # the same seeded weights on both
         syn = Synthesizer(cfg_s, device=d, seed=3)
         syn.lvd.requires_grad_(net == "pe")  # the frozen teacher, unless LVD is trained
-        loss, _ = getattr(syn, loss_name)({k: torch.from_numpy(v).to(d) for k, v in b_np.items()},
-                                          0, generator=torch.Generator(device=d).manual_seed(0))
+        loss, m = getattr(syn, loss_name)({k: torch.from_numpy(v).to(d) for k, v in b_np.items()},
+                                          0, generator=torch.Generator(device=d).manual_seed(0),
+                                          **(loss_kw or {}))
         loss.backward()
-        res.append((float(loss.detach()), _flatten(to_jax(syn, grads=True)[net])))
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = res
+        res.append((float(loss.detach()), _flatten(to_jax(syn, grads=True)[net]),
+                    {k: float(m[k]) for k in metrics}))
+    (l_gpu, g_gpu, m_gpu), (l_cpu, g_cpu, m_cpu) = res
     # per leaf: 5e-3 of the leaf's largest gradient (the CPU tests' factor
     # against JAX) plus 1e-5 of the largest of all leaves, since a leaf whose
     # gradient sums many cancelling terms carries the whole step's rounding
@@ -2831,9 +2863,13 @@ def small_step_check(dev, cfg_s, loss_name, net, label):
     log(f"small float32 {label} step, card vs CPU: loss {l_gpu:.6f} / {l_cpu:.6f} (relative "
         f"{e_loss:.3g}, tol 1e-4); per-leaf gradients within {ratio:.3g} of their tolerance "
         f"(5e-3 x max|CPU leaf| + 1e-5 x max|CPU grad| = {top:.3g}), the tightest {leaf}")
-    check(e_loss <= 1e-4 and ratio <= 1.0,
+    e_metrics = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in metrics}
+    if metrics:
+        log(f"  metrics card / CPU: " + ", ".join(f"{k} {m_gpu[k]:.6g} / {m_cpu[k]:.6g} "
+                                                   f"(relative {e_metrics[k]:.3g})" for k in metrics))
+    check(e_loss <= 1e-4 and ratio <= 1.0 and all(e <= 1e-4 for e in e_metrics.values()),
           f"the small {label} step on the card disagrees with the CPU")
-    return {"loss_err": e_loss, "grad_tol_ratio": ratio}
+    return {"loss_err": e_loss, "grad_tol_ratio": ratio, "metric_errs": e_metrics}
 
 
 def phase_flp(dev, card_name, root, lvd_dir, profile_dir=None):
@@ -2867,7 +2903,7 @@ def phase_flp(dev, card_name, root, lvd_dir, profile_dir=None):
         f"({sum(p.numel() for p in tr.syn.flp.parameters())} FLP parameters)")
     check(restored_equal(tr, lvd_dir), "the LVD teacher did not restore equal to phase 7's slot")
     log("LVD teacher restored equal to phase 7's latest slot")
-    run_s, launches, _ = run_and_check(tr, "pg", "flp", TRAIN_ITERS, "FLP")
+    run_s, launches, _ = run_and_check(tr, {"pg": "flp"}, TRAIN_ITERS, "FLP")
     check(not any(launches.values()), f"the FLP path launched a kernel: {launches}")
     batch, res = time_steps(tr, mode, "flp", profile_dir)
     check(not any(res["launches_per_step"].values()), "an FLP step launched a kernel")
@@ -2963,10 +2999,10 @@ def tapped_texels(grids, h, w, boxes=None, chunk=17):
     return n
 
 
-def wif_kernel_rows(card_name, run_launches, pc_inputs, batch_inputs):
+def wif_kernel_rows(card_name, run_launches, pc_inputs, batch_inputs, what="WIF decode"):
     """K2' and K2's batch mode on the inputs one WIF step handed them (the
-    decode at 512x1024): each against its plain version, timed beside its
-    bound and one F.grid_sample call."""
+    decode at 512x1024, ``what`` names the step): each against its plain
+    version, timed beside its bound and one F.grid_sample call."""
     import torch
     import torch.nn.functional as F
     from waldo_tpu_torch.ops.grid_sample import (grid_sample_multigrid_plain, grid_sample_plain,
@@ -2982,9 +3018,9 @@ def wif_kernel_rows(card_name, run_launches, pc_inputs, batch_inputs):
     want = grid_sample_multigrid_plain(tex, grids)
     err = float((out.float() - want.float()).abs().max())
     zero = float((want == 0).float().mean())
-    log(f"K2' on the WIF decode's inputs: texture {tuple(tex.shape)} {tex.dtype}, grids "
+    log(f"K2' on the {what}'s inputs: texture {tuple(tex.shape)} {tex.dtype}, grids "
         f"{tuple(grids.shape)}; max|err| {err:.3g} (tol {tol}); {zero:.4g} of the samples are 0")
-    check(bool(torch.isfinite(out).all()) and err <= tol, f"K2' on the WIF inputs: {err}")
+    check(bool(torch.isfinite(out).all()) and err <= tol, f"K2' on the {what} inputs: {err}")
     del out, want
     tex_fold = tex.permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
     grids_fold = grids.reshape(f * c, grids.shape[2], grids.shape[3], 2)
@@ -3003,11 +3039,11 @@ def wif_kernel_rows(card_name, run_launches, pc_inputs, batch_inputs):
                       * (boxes[..., 3] - boxes[..., 2] + 1).clamp(min=0)).sum())
     b = bound(card_name, es * texels + (8 + es) * n_s, 24 * n_s)
     b_dense = bound(card_name, es * f * h * w * c + (8 + es) * n_s, 24 * n_s)
-    log(f"K2' on the WIF decode's inputs: the samples' taps read {texels} distinct texels, "
+    log(f"K2' on the {what}'s inputs: the samples' taps read {texels} distinct texels, "
         f"{texels / (f * h * w * c):.4f} of the texture (the planes' nonzero boxes hold "
         f"{box_texels / (f * h * w * c):.4f} of it); bound {b[0]:.4f} ms on the texels read, "
         f"{b_dense[0]:.4f} ms on a dense read of the texture")
-    rows.append({"name": f"grid_sample_per_channel WIF decode {f}x{h}x{w} C={c}", "route": "cuda",
+    rows.append({"name": f"grid_sample_per_channel {what} {f}x{h}x{w} C={c}", "route": "cuda",
                  "source": K2_SOURCE, "replaces": K2_REPLACES,
                  "launches": run_launches["grid_sample_per_channel"], "max_abs_err": err,
                  **timed, "bound_ms": b[0], "bound_by": b[1], "zero_share": zero,
@@ -3023,15 +3059,16 @@ def wif_kernel_rows(card_name, run_launches, pc_inputs, batch_inputs):
     out = grid_sample_cuda(img, grid, 1)
     want = grid_sample_plain(img, grid)
     err = float((out.float() - want.float()).abs().max())
-    log(f"K2 batch mode on the WIF decode's inputs: texture {tuple(img.shape)} {img.dtype}, grid "
+    log(f"K2 batch mode on the {what}'s inputs: texture {tuple(img.shape)} {img.dtype}, grid "
         f"{tuple(grid.shape)}; max|err| {err:.3g} (tol {tol})")
-    check(bool(torch.isfinite(out).all()) and err <= tol, f"K2 batch mode on the WIF inputs: {err}")
+    check(bool(torch.isfinite(out).all()) and err <= tol,
+          f"K2 batch mode on the {what} inputs: {err}")
     del out, want
     # the bound counts the texels the grid's taps reach, every channel of each
     texels = tapped_texels(grid, h, w)
-    log(f"K2 batch mode on the WIF decode's inputs: the grid's taps read "
+    log(f"K2 batch mode on the {what}'s inputs: the grid's taps read "
         f"{texels / (f * h * w):.4f} of the texture")
-    rows.append(k2_row(card_name, f"grid_sample batch mode WIF decode {f}x{h}x{w} C={c}", img,
+    rows.append(k2_row(card_name, f"grid_sample batch mode {what} {f}x{h}x{w} C={c}", img,
                        grid, 1, run_launches["grid_sample"], err, texels,
                        texels_read_share=texels / (f * h * w)))
     del img, grid, batch_inputs
@@ -3096,7 +3133,7 @@ def phase_wif(dev, card_name, root, lvd_dir, profile_dir=None):
             check(restored_equal(tr, lvd_dir),
                   "the LVD teacher did not restore equal to phase 7's slot")
             n = TRAIN_ITERS
-            run_s, launches, by_key = run_and_check(tr, "ii", "wif", n, f"WIF ({variant})")
+            run_s, launches, by_key = run_and_check(tr, {"ii": "wif"}, n, f"WIF ({variant})")
             check(launches == {"warp_alpha_ctx": 0, "grid_sample": n,
                                "grid_sample_per_channel": n, "grid_sample_bwd": 0,
                                "grid_sample_per_channel_bwd": 0, "bias_act": 0,
@@ -3117,7 +3154,10 @@ def phase_wif(dev, card_name, root, lvd_dir, profile_dir=None):
                 r["logging"] = logging_check(tr, mode, batch, "WIF")
                 pc_inputs, batch_inputs = capture_wif_sample_inputs(tr, mode, batch)
                 del batch
-                r["loader"] = loader_timing(tr, mode, r["ms_per_step"], profile_dir, "_wif")
+                # the script's workers only: the one-worker and in-thread ways
+                # (~11 and ~9 s an iteration) took ~80 s of the script
+                r["loader"] = loader_timing(tr, mode, r["ms_per_step"], profile_dir, "_wif",
+                                            ways=(cfg.data.num_workers,))
                 del tr
                 torch.cuda.empty_cache()
                 rows = wif_kernel_rows(card_name, launches, pc_inputs, batch_inputs)
@@ -4194,6 +4234,254 @@ def phase_dist(dev, root):
     return res
 
 
+# ---------------------------------------------------------------------------
+# WIF adversarial training (phase 13)
+# ---------------------------------------------------------------------------
+
+GAN_LOSSES = "sharp_vid lpips_vid adv dis"
+GAN_TURNS = 2  # turns of phase 9b's plain WIF step and the G step, TRAIN_TIMED steps each
+
+
+def gan_flags(root, lvd_dir, *extra):
+    """train_wif.sh's flags with the GAN losses and the adaptive lambda, on
+    synthetic clips, the LVD teacher from ``lvd_dir``."""
+    return train_lvd_flags(WIF_SCRIPT) + [
+        "--data.dataset", "synthetic", "--save_path", root, "--s_load_path", lvd_dir,
+        "--s_vid_inpainting_losses", GAN_LOSSES, "--s_use_adaptive_lambda", "true"] + list(extra)
+
+
+def gan_turns(tr, batch):
+    """Phase 9b's plain WIF step (L1 and LPIPS, no adversarial term) and the
+    G step on one batch, TRAIN_TIMED steps each after one warm-up, in
+    GAN_TURNS turns (CUDA events)."""
+    st = tr.states["ii"]
+
+    def plain():
+        st.zero_grad()
+        loss, _ = tr.syn.inpaint_loss(batch, 0)
+        loss.backward()
+        st.apply(loss)
+
+    out = {"plain_ms": [], "g_ms": []}
+    for _ in range(GAN_TURNS):
+        out["plain_ms"].append(cuda_time(plain, TRAIN_TIMED, warmup=1))
+        out["g_ms"].append(cuda_time(lambda: tr.step("vid_inpainting", batch, 0), TRAIN_TIMED,
+                                     warmup=1))
+    log(f"plain WIF step (phase 9b's) {['%.2f' % v for v in out['plain_ms']]} ms against the G "
+        f"step {['%.2f' % v for v in out['g_ms']]} ms, in turns")
+    return out
+
+
+def gan_torchrun(root, lvd_dir):
+    """The training CLI with the GAN flags under torchrun, NCCL at world 1,
+    TRAIN_ITERS iterations: the group reported, both modes' losses logged
+    finite with no skipped step, the "id" slot saved."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    flags = gan_flags(root, lvd_dir, "--datetime", "gan_dist", "--num_iter", str(TRAIN_ITERS),
+                      "--log_freq", "0")
+    secs, out = torchrun(1, ["-m", "waldo_tpu_torch.cli.train"] + flags, "torchrun cli.train GAN")
+    cfg_line = [ln for ln in out.splitlines() if ln.startswith("[dist]")]
+    check(cfg_line and "nccl process group of 1" in cfg_line[0],
+          f"the CLI did not report an NCCL process group of 1: {out[-2000:]}")
+    run = [d for d in os.listdir(os.path.join(root, "logs")) if d.startswith("gan_dist-")]
+    check(len(run) == 1, f"run directories {run}")
+    acc = EventAccumulator(os.path.join(root, "logs", run[0]))
+    acc.Reload()
+    res = {"seconds": secs}
+    for tag in ("vid_inpainting/train/loss", "vid_inpainting/train/adaptive_lambda",
+                "vid_inpainting_dis/train/dis", "vid_inpainting/train/nancount",
+                "vid_inpainting_dis/train/nancount"):
+        res[tag] = [(e.step, e.value) for e in acc.Scalars(tag)]
+        check([st for st, _ in res[tag]] == list(range(TRAIN_ITERS))
+              and all(np.isfinite(v) for _, v in res[tag])
+              and (not tag.endswith("nancount") or all(v == 0 for _, v in res[tag])),
+              f"{tag}: {res[tag]}")
+    slots = sorted(os.listdir(os.path.join(root, "checkpoints", run[0])))
+    check("id_latest.npz" in slots and "ii_latest.npz" in slots, f"slots {slots}")
+    log(f"torchrun -m waldo_tpu_torch.cli.train with the GAN losses ({TRAIN_ITERS} iterations): "
+        f"{secs:.1f} s; {cfg_line}; losses {res['vid_inpainting/train/loss']}, dis "
+        f"{res['vid_inpainting_dis/train/dis']}, lambda "
+        f"{res['vid_inpainting/train/adaptive_lambda']}")
+    return res
+
+
+def decode_layer_check(dev, lvd_dir, root):
+    """Synthesizer.decode_layer once on phase 7's fixed batch (train_lvd.sh's
+    flags, B = 8 synthetic clips, the teacher from ``lvd_dir``), without
+    gradients: its launches (K2's batch mode on the background's gather,
+    which the JAX package's routing envelope gives the Pallas kernel; the
+    other samples are F.grid_sample) and its outputs against the same call
+    with every sample plain."""
+    import importlib
+
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.convert import from_jax, to_jax
+    from waldo_tpu_torch.models import Synthesizer
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_plain
+    from waldo_tpu_torch.ops.kernels import reset_launches
+    from waldo_tpu_torch.parallel import BatchShard
+    from waldo_tpu_torch.train import CheckpointManager
+
+    cfg = parse_cli(train_lvd_flags() + ["--data.dataset", "synthetic", "--save_path", root])
+    syn = Synthesizer(cfg, device=dev, seed=cfg.seed)
+    trees = to_jax(syn)
+    trees["pe"] = CheckpointManager(lvd_dir).restore("pe", trees["pe"], "latest", strict=True)
+    from_jax(trees, syn)
+    rows = fixed_rows(cfg, BatchShard.whole(cfg.batch_size_vid))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items() if isinstance(v, np.ndarray)}
+    warper = importlib.import_module("waldo_tpu_torch.models.warper")
+    with torch.no_grad():
+        p = syn.lvd_pass(syn.make_input(batch["vid"], batch["lyt"], batch["flow"]),
+                         cfg.model.ctx_len)
+        occ, obj_alpha, bg_alpha, grids = syn.alpha_grid_occ(
+            p["x_obj"], p["obj_pose"], p["bg_pose"], p["occ_score"])
+        x = torch.cat([batch["vid"], batch["lyt"]], dim=-1)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = syn.decode_layer(x, grids, occ, obj_alpha, bg_alpha)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, by_key = read_launches()
+        sample = warper.grid_sample
+        warper.grid_sample = grid_sample_plain
+        try:
+            want = syn.decode_layer(x, grids, occ, obj_alpha, bg_alpha)
+        finally:
+            warper.grid_sample = sample
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    log(f"decode_layer on phase 7's batch (x {tuple(x.shape)}): {secs * 1e3:.1f} ms; outputs "
+        f"{[tuple(g.shape) for g in got]}; launches {launches} by key {by_key}; max|err| "
+        f"against every sample plain {errs} (tol {TOL_F32})")
+    check(launches["grid_sample"] == 1 and all(v == 0 for k, v in launches.items()
+                                               if k != "grid_sample"),
+          f"decode_layer's launches {launches}")
+    check(all(bool(torch.isfinite(g).all()) for g in got) and max(errs) <= TOL_F32,
+          f"decode_layer on the card disagrees with its plain samples: {errs}")
+    return {"ms": secs * 1e3, "launches": launches, "max_abs_err": errs}
+
+
+def phase_gan(dev, card_name, root, lvd_dir, profile_dir=None):
+    """WIF adversarial training: train_wif.sh's flags with the GAN losses
+    ("sharp_vid lpips_vid adv dis") and the adaptive lambda, on synthetic
+    clips from phase 7's LVD teacher, phase 9's seeded random VGG16 LPIPS:
+    Trainer.run in this process with strict launch counts (the decode's K2',
+    K2 batch mode and pre-pass once in each G and D step), the G and D steps
+    timed on one batch, phase 9b's plain WIF step timed in turns with the G
+    step, the GAN iteration (two batches) with the script's loader workers,
+    K2', K2 and the pre-pass against their plain versions on the D step's
+    decode; the training CLI under torchrun (NCCL, world 1); decode_layer on
+    phase 7's batch; small float32 G and D steps card vs CPU, lambda
+    included."""
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.train import Trainer
+
+    log(f"== 13. WIF adversarial training ({WIF_SCRIPT} with {GAN_LOSSES!r} and the adaptive "
+        f"lambda) on synthetic clips, LVD teacher from phase 7")
+    t_phase = time.perf_counter()
+    modes = ["vid_inpainting", "vid_inpainting_dis"]
+    lpips_path = os.path.join(root, "lpips", "lpips_vgg.npz")
+    if not os.path.exists(lpips_path):
+        write_random_lpips_vgg(lpips_path, seed=0)
+    old_env = os.environ.get("WALDO_LPIPS_WEIGHTS")
+    os.environ["WALDO_LPIPS_WEIGHTS"] = os.path.dirname(lpips_path)
+    res, rows = {}, []
+    try:
+        cfg = parse_cli(gan_flags(root, lvd_dir, "--datetime", "smoke_gan"))
+        m = cfg.model
+        shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.load_dim,
+                 int(cfg.load_dim * cfg.aspect_ratio), m.ii_depth, m.ii_embed_dim,
+                 cfg.compute_dtype, m.sample_precision, cfg.data.num_workers)
+        log(f"config (B, T, H, W, ii depth, ii embed, nets, sampling, workers): {shape}; losses "
+            f"{m.vid_inpainting_losses}, adaptive lambda {m.use_adaptive_lambda}, lambda_adv "
+            f"{m.lambda_adv}, lambda_dis {m.lambda_dis}")
+        check(shape == (8, 5, 512, 1024, 6, 512, "float32", "fast", 8) and m.use_adaptive_lambda
+              and m.vid_inpainting_losses == GAN_LOSSES.split() and m.load_path == lvd_dir,
+              "the parsed config is not train_wif.sh's with the GAN losses")
+        tr = Trainer(cfg, device=dev)
+        log(f"modes {tr._train_modes}; {sum(p.numel() for p in tr.syn.disc.parameters())} "
+            f"discriminator parameters; the adaptive lambda's WIF parameter "
+            f"{tr.syn.adaptive_leaf}")
+        check(tr._train_modes == modes and tr.syn.lpips is not None
+              and tr.syn.adaptive_leaf == "unet.deconv_layers.3.norm.weight",
+              "the GAN trainer's wiring")
+        check(restored_equal(tr, lvd_dir), "the LVD teacher did not restore equal to phase 7's")
+        torch.cuda.reset_peak_memory_stats()
+        n = TRAIN_ITERS
+        run_s, launches, by_key = run_and_check(tr, {"ii": "wif", "id": "disc"}, n, "GAN")
+        res.update(run_seconds=run_s, launches_run=launches,
+                   run_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(launches == {"warp_alpha_ctx": 0, "grid_sample": 2 * n,
+                           "grid_sample_per_channel": 2 * n, "grid_sample_bwd": 0,
+                           "grid_sample_per_channel_bwd": 0, "bias_act": 0,
+                           "plane_boxes": 2 * n},
+              f"expected K2', K2's batch mode and the pre-pass once in each G and D step, got "
+              f"{launches}")
+        per_step = lambda r: all(v == (1 if k in ("grid_sample", "grid_sample_per_channel",
+                                                  "plane_boxes") else 0)
+                                 for k, v in r["launches_per_step"].items())
+        batch, g = time_steps(tr, modes[0], "gan_g", profile_dir)
+        _, d = time_steps(tr, modes[1], "gan_d", profile_dir, batch=batch)
+        check(per_step(g) and per_step(d), f"launches per G step {g['launches_per_step']}, per "
+                                           f"D step {d['launches_per_step']}")
+        check({"adv", "adaptive_lambda", "lpips_vid"} <= set(g["metrics"])
+              and {"dis", "real_score", "fake_score"} <= set(d["metrics"]),
+              f"metrics {sorted(g['metrics'])}, {sorted(d['metrics'])}")
+        res.update(g_step=g, d_step=d, turns=gan_turns(tr, batch))
+        pc_inputs, batch_inputs = capture_wif_sample_inputs(tr, modes[1], batch)
+        del batch
+        res["loader"] = loader_timing(tr, modes, g["ms_per_step"] + d["ms_per_step"], profile_dir,
+                                      "_gan", ways=(cfg.data.num_workers,))
+        del tr
+        torch.cuda.empty_cache()
+        tex = pc_inputs[0]
+        rows.append(plane_boxes_row(card_name, f"plane_boxes D step decode {tuple(tex.shape)}",
+                                    tex, launches["plane_boxes"]))
+        del tex
+        rows += wif_kernel_rows(card_name, launches, pc_inputs, batch_inputs, "D step decode")
+        del pc_inputs, batch_inputs
+        torch.cuda.empty_cache()
+        log(f"this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB while torchrun runs")
+        res["torchrun"] = gan_torchrun(root, lvd_dir)
+        res["decode_layer"] = decode_layer_check(dev, lvd_dir, root)
+        torch.cuda.empty_cache()
+        os.environ["WALDO_LPIPS_WEIGHTS"] = os.path.join(root, "no_lpips")
+        # phase 9's small WIF (no zero-initialized output conv) with the GAN
+        cfg_s = small_train_cfg()
+        cfg_s.model.use_ii, cfg_s.model.ii_depth, cfg_s.model.ii_embed_dim = True, 2, 16
+        cfg_s.model.ii_ab = False
+        cfg_s.model.vid_inpainting_losses = ["sharp_vid", "adv", "dis"]
+        cfg_s.model.use_adaptive_lambda = True
+        res["small_g"] = small_step_check(dev, cfg_s, "inpaint_loss", "ii", "WIF G (adv)",
+                                          loss_kw={"adv": True},
+                                          metrics=("adv", "adaptive_lambda"))
+        res["small_d"] = small_step_check(dev, cfg_s, "discriminate_loss", "id", "discriminator",
+                                          metrics=("dis", "real_score", "fake_score"))
+    finally:
+        if old_env is None:
+            os.environ.pop("WALDO_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["WALDO_LPIPS_WEIGHTS"] = old_env
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 took {res['seconds']:.1f} s")
+    return res, rows
+
+
+def gan_teacher(dev, root):
+    """For --gan: an LVD run's "latest" slot of seeded weights at
+    train_lvd.sh's flags, in place of phase 7's run. Returns its dir."""
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.train import Trainer
+
+    tr = Trainer(parse_cli(train_lvd_flags() + ["--data.dataset", "synthetic", "--save_path",
+                                                root, "--datetime", "teacher"]), device=dev)
+    tr.save(0, name="latest")
+    return tr.cfg.checkpoint_path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10, help="timed predicts")
@@ -4213,6 +4501,9 @@ def main(argv=None):
     ap.add_argument("--dist", action="store_true",
                     help="only run phases 1, 2 and 12 (the distributed runs); the last line is "
                          "its JSON summary")
+    ap.add_argument("--gan", action="store_true",
+                    help="only run phases 1, 2 and 13 (WIF adversarial training), the teacher a "
+                         "seeded LVD slot; the last line is its JSON summary")
     ap.add_argument("--dist-worker", choices=["nccl", "gloo", "nccl-cards"], default=None,
                     help="run as one rank of phase 12 under torchrun (the phase starts them)")
     ap.add_argument("--dist-root", default=None, help="phase 12's directory, for its ranks")
@@ -4253,6 +4544,19 @@ def main(argv=None):
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"dist": jsonable(res)}), flush=True)
         return 0
+    if args.gan:
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            res, gan_rows = phase_gan(dev, name, root, gan_teacher(dev, root), args.profile)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(jsonable({"card": card_line, "gan": res, "kernels": gan_rows}), fh,
+                          indent=1)
+        print(json.dumps({"gan": jsonable(res), "kernels": gan_rows}), flush=True)
+        return 0
     errs, per_channel = phase_kernels(dev)
     main_res, k1_seen = phase_main(dev, args.iters, args.profile)
     mat_res = phase_mat(dev, args.profile)
@@ -4274,6 +4578,8 @@ def main(argv=None):
         rows += eval_rows
         convert_res = phase_convert(dev, os.path.join(root, "convert"))
         dist_res = phase_dist(dev, os.path.join(root, "dist"))
+        gan_res, gan_rows = phase_gan(dev, name, root, lvd_dir, args.profile)
+        rows += gan_rows
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
@@ -4285,7 +4591,7 @@ def main(argv=None):
                                 "per_channel": per_channel,
                                 "main": main_res, "mat": mat_res, "train": train_res,
                                 "flp": flp_res, "wif": wif_res, "eval": eval_res,
-                                "convert": convert_res, "dist": dist_res,
+                                "convert": convert_res, "dist": dist_res, "gan": gan_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

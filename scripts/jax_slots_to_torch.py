@@ -9,7 +9,7 @@ same names and .iter files (waldo_tpu_torch/train/checkpoint.py). This
 script restores each slot through the JAX package's CheckpointManager and
 writes the port's file; the run's config.json is copied beside them.
 
-    python scripts/jax_slots_to_torch.py SRC DST [--nets pe pg ii] [--which latest 1000]
+    python scripts/jax_slots_to_torch.py SRC DST [--nets pe pg ii id] [--which latest 1000]
 
 SRC is the JAX run's checkpoint directory, DST the port's (for example the
 --s_load_path of a port run). Without --which every slot of the nets is
@@ -31,7 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from waldo_tpu.train.checkpoint import CheckpointManager, normalize_which  # noqa: E402
 
-NETS = ("pe", "pg", "ii")
+NETS = ("pe", "pg", "ii", "id")
 
 
 def _flatten(tree, prefix=""):
@@ -76,14 +76,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("src", help="the JAX run's checkpoint directory")
     ap.add_argument("dst", help="the directory to write the port's slots into")
-    ap.add_argument("--nets", nargs="+", default=list(NETS), choices=NETS)
+    ap.add_argument("--nets", nargs="+", default=None, choices=NETS,
+                    help="default: every net with a slot in SRC")
     ap.add_argument("--which", nargs="+", default=None,
                     help="slots to convert (iterations or names); default: every slot")
     args = ap.parse_args(argv)
     mgr = CheckpointManager(args.src)
     os.makedirs(args.dst, exist_ok=True)
     written = []
-    for net in args.nets:
+    nets = args.nets or [net for net in NETS if slots(mgr.root, net)]
+    for net in nets:
         tags = [normalize_which(w) for w in args.which] if args.which else slots(mgr.root, net)
         for which in tags:
             written.append(convert_slot(mgr, net, which, args.dst))
@@ -92,7 +94,7 @@ def main(argv=None):
     if os.path.exists(cfg):
         shutil.copyfile(cfg, os.path.join(args.dst, "config.json"))
     if not written:
-        raise SystemExit(f"no slot of {args.nets} in {mgr.root}")
+        raise SystemExit(f"no slot of {nets or list(NETS)} in {mgr.root}")
     return written
 
 

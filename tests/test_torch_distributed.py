@@ -145,6 +145,31 @@ def job_one_step(job, shard, key):
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
+def job_gan_steps(job, shard):
+    """One WIF step with adv and the adaptive lambda, then one
+    discriminator step, each applied, on the shard's rows: the rank's
+    metrics and the nets' parameters after each."""
+    from waldo_tpu_torch.train import NetState
+
+    cfg = from_dict(job["gan"]["cfg"])
+    syn = _perturbed(cfg)
+    syn.lvd.requires_grad_(False)
+    batch = {k: shard.rows(v) for k, v in _tensors(job["gan"]["batch"]).items()}
+    out = {}
+    for key, net, loss_fn in (
+            ("g", "ii", lambda: syn.inpaint_loss(batch, 0, shard=shard, adv=True)),
+            ("d", "id", lambda: syn.discriminate_loss(batch, 0, shard=shard))):
+        module = syn.nets()[net]
+        st = NetState(module, cfg.model)
+        st.zero_grad()
+        loss, metrics = loss_fn()
+        loss.backward()
+        st.apply(loss)
+        out[key] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                    "params": _named(module, st.params)}
+    return out
+
+
 def job_trainer(job, rank):
     """Trainer.run(2) with an eval after the second step, then a cont_train
     rerun to 3; every rank names the run after itself before the trainer
@@ -215,6 +240,9 @@ def run_jobs(job, rank, save_path):
         b = len(job[key]["batch"]["vid"]) // _world()
         out[key] = job_one_step(job, BatchShard.of_rank(b), key)
         seconds[key] = time.perf_counter() - t0 - sum(seconds.values())
+    b = len(job["gan"]["batch"]["vid"]) // _world()
+    out["gan"] = job_gan_steps(job, BatchShard.of_rank(b))
+    seconds["gan"] = time.perf_counter() - t0 - sum(seconds.values())
     out["trainer"] = job_trainer(job, rank)
     seconds["trainer"] = time.perf_counter() - t0 - sum(seconds.values())
     out["evaluator"] = job_evaluator(job)
@@ -283,6 +311,10 @@ def ranks(tmp_path_factory):
     acfg.model.vid_object_extractor_losses = (list(acfg.model.vid_object_extractor_losses)
                                               + ["activity", "topactivity"])
     acfg.model.ctx_mode, acfg.model.drop_input_p = "prev_rd", 0.3
+    # WIF with adv and the adaptive lambda, and the discriminator (B = 4)
+    gcfg = tiny_config(use_pg=False, use_ii=True)
+    gcfg.model.vid_inpainting_losses = ["sharp_vid", "adv", "dis"]
+    gcfg.model.use_adaptive_lambda = True
     # the trainer: test_torch_train.train_cfg with an eval after the second step
     tcfg = train_cfg(root, num_iter_eval=1, vid_metric="loss", max_batch_eval_vid=1,
                      log_freq=None)
@@ -303,6 +335,7 @@ def ranks(tmp_path_factory):
                 "loss": "generate_pose_loss", "net": "pg"},
         "activity": {"cfg": jconfig.to_dict(acfg), "batch": _np(tiny_batch(acfg, b=4, seed=3)),
                      "loss": "extract_object_loss", "net": "pe"},
+        "gan": {"cfg": jconfig.to_dict(gcfg), "batch": _np(tiny_batch(gcfg, b=4, seed=4))},
         "trainer_cfg": to_dict(tcfg), "eval_cfg": to_dict(ecfg),
     }
     t0 = time.perf_counter()
@@ -465,6 +498,38 @@ def test_activity_terms_match_world_one(ranks):
             want = world1["activity"]["metrics"][name]
             assert abs(r["activity"]["metrics"][name] - want) <= 1e-5 * abs(want), name
     _grads_close(res, world1, "activity")
+
+
+def test_gan_steps_match_world_one(ranks):
+    """A WIF step with adv and the adaptive lambda, then a discriminator
+    step, at W = 2: lambda's two gradients are averaged over the ranks
+    before their norms, so every rank takes world 1's lambda; the ranks'
+    mean losses are world 1's, and the parameters after each step bitwise
+    equal across the ranks and world 1's after an Adam step (as for the LVD
+    steps, but for the discriminator's biases before a per-channel norm,
+    whose gradient is 0 in exact arithmetic: within the lr an Adam step can
+    move them either way)."""
+    res, world1, job, *_ = ranks
+    lr = from_dict(job["gan"]["cfg"]).model.lr
+    normed = {f"convs.{i}.bias" for i in (1, 2, 3)}
+    lam = world1["gan"]["g"]["metrics"]["adaptive_lambda"]
+    assert lam > 0
+    for r in res:
+        assert abs(r["gan"]["g"]["metrics"]["adaptive_lambda"] - lam) <= 1e-5 * lam
+    for key in ("g", "d"):
+        for name, want in world1["gan"][key]["metrics"].items():
+            if name in ("adaptive_lambda", "sharp_delta"):
+                continue
+            mean = float(np.mean([r["gan"][key]["metrics"][name] for r in res]))
+            assert abs(mean - want) <= 1e-5 * abs(want) + 1e-7, (key, name, mean, want)
+        a, b = (r["gan"][key]["params"] for r in res)
+        assert all(np.array_equal(a[k], b[k]) for k in a), key
+        for k, w in world1["gan"][key]["params"].items():
+            diff = np.abs(a[k] - w)
+            if key == "d" and k in normed:
+                assert float(diff.max()) <= 2.0 * lr, k
+            else:
+                assert float(diff.max()) <= 4e-4 and (diff > 2e-6).mean() <= 1e-3, (key, k)
 
 
 def test_trainer_run_two_ranks(ranks):

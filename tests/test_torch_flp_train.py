@@ -202,6 +202,6 @@ def test_flp_dropout_raises_in_training():
     cfg = pose_cfg()
     cfg.model.dropout = 0.1
     syn = Synthesizer(from_dict(to_dict(cfg)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="InvalidRngError"):
         syn.generate_pose_loss(_tb({k: np.asarray(v) for k, v in tiny_batch(cfg).items()}), 0,
                                generator=torch.Generator().manual_seed(0))

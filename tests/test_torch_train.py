@@ -359,13 +359,26 @@ def test_trainer_runs_saves_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("mode", ["adv", "dis"])
 def test_trainer_refuses_modes_not_ported(tmp_path, mode):
-    """What stays unported of the training modes: vid_inpainting's GAN
-    losses (the generator's adv and the discriminator's dis step)."""
+    """vid_inpainting's GAN losses, once refused (the name is kept), now
+    step: with adv the generator's step carries the adversarial term
+    against a discriminator that does not train; with dis the
+    discriminator's step follows it."""
     cfg = train_cfg(tmp_path, vid_modes=["vid_inpainting"])
-    cfg.model.use_ii = True
+    cfg.model.use_ii, cfg.model.ii_depth, cfg.model.ii_embed_dim = True, 2, 16
     cfg.model.vid_inpainting_losses = ["sharp_vid", mode]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        Trainer(cfg, device="cpu")
+    tr = Trainer(cfg, device="cpu")
+    trained = {"adv": ["ii"], "dis": ["id", "ii"]}[mode]
+    assert sorted(tr.states) == trained and tr.syn.disc is not None
+    seen = {}
+    step = tr.step
+    tr.step = lambda m, b, it: seen.setdefault(m, step(m, b, it))
+    tr.run(num_iter=1)
+    assert ("adv" in seen["vid_inpainting"]) == (mode == "adv")
+    assert ("vid_inpainting_dis" in seen) == (mode == "dis")
+    for net in trained:
+        assert int(tr.states[net].count) == 1 and int(tr.states[net].nancount) == 0
+    if mode == "adv":
+        assert all(not p.requires_grad and p.grad is None for p in tr.syn.disc.parameters())
 
 
 def test_cli_train_asks_for_the_card(tmp_path):

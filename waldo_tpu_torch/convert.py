@@ -2,9 +2,9 @@
 
 ``from_jax(params_np, synthesizer)`` takes the JAX package's parameter tree
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` of
-``Synthesizer.init_params``: keys "pe", "pg", "ii", each optionally under a
-"params" collection) and loads it into the synthesizer's ``lvd``, ``flp``
-and ``wif`` modules. It is strict: a leaf of the tree that no port parameter
+``Synthesizer.init_params``: keys "pe", "pg", "ii" and, with the GAN, "id",
+each optionally under a "params" collection) and loads it into the
+synthesizer's ``lvd``, ``flp``, ``wif`` and ``disc`` modules. It is strict: a leaf of the tree that no port parameter
 takes, a port parameter that no leaf fills, or a shape that disagrees
 raises.
 
@@ -15,6 +15,11 @@ Layout rules (the inverse of waldo_tpu/models/convert.py):
          flipped: the JAX transposed conv correlates its kernel as given,
          torch's ConvTranspose2d the flipped one
   copy   identical shapes (embeddings, norm scale/bias, noise_strength)
+
+``load_from_jax(tree_np, module, rules, what)`` loads one module by a rule
+list (``attention_rules``, ``block_rules``, ``disc_rules``); the
+discriminator's ("id") are its convolutions ``Conv_0..4`` (kernel and bias)
+and per-channel norms ``CustomNorm_0..2``.
 
 ``to_jax(synthesizer, grads=False)`` is the inverse: the nets' parameters,
 or their gradients, as the JAX package's tree (the gradient tests and the
@@ -44,15 +49,26 @@ import torch
 # rule: (port state_dict key, flax path "a/b/c", kind)
 Rule = Tuple[str, str, str]
 
-_ATTN_CLS = {"full": "FullAttention_0", "cross": "CrossAttention_0",
-             "obj": "ObjAttention_0", "cls": "ClsAttention_0"}
+_ATTN_CLS = {"full": "FullAttention_0", "full_with_cond_norm": "FullAttention_0",
+             "cross": "CrossAttention_0", "obj": "ObjAttention_0", "cls": "ClsAttention_0",
+             "ctx": "CtxAttention_0", "seed": "SeedAttention_0",
+             "block_causal": "BlockCausalAttention_0", "skip": "SkipAttention_0",
+             "skip2": "Skip2Attention_0"}
+_Q_KV = [("q", 0, False), ("kv", 1, False), ("proj", 2, True)]
+_SKIP = [("qkv", 0, False), ("k_ctx", 1, False), ("v_ctx", 2, False), ("proj", 3, True)]
 # port linear name -> flax Dense index, has_bias
 _ATTN_LINS = {
     "full": [("qkv", 0, False), ("proj", 1, True)],
-    "cross": [("q", 0, False), ("kv", 1, False), ("proj", 2, True)],
-    "obj": [("q", 0, False), ("kv", 1, False), ("proj", 2, True)],
-    "cls": [("q", 0, False), ("kv", 1, False), ("proj", 2, True)],
+    "cross": _Q_KV, "obj": _Q_KV, "cls": _Q_KV, "ctx": _Q_KV,
+    "seed": [("qkv", 0, False), ("kv_cls", 1, False), ("proj", 2, True)],
+    "block_causal": [("qkv", 0, False), ("proj", 1, True)],
+    "skip": _SKIP, "skip2": _SKIP,
 }
+_ATTN_LINS["full_with_cond_norm"] = _ATTN_LINS["full"]
+
+
+def _join(prefix: str, name: str, sep: str) -> str:
+    return f"{prefix}{sep}{name}" if prefix else name
 
 
 def _norm(t: str, f: str, norm_layer: str) -> List[Rule]:
@@ -70,17 +86,34 @@ def _dense(t: str, f: str, has_bias: bool = True) -> List[Rule]:
     return rules
 
 
+def attention_rules(block_type: str, t: str = "", f: str = "", noise: bool = False) -> List[Rule]:
+    """The rules of an attention module of ``block_type`` at the port path
+    ``t`` and the flax path ``f`` (both empty: the module itself)."""
+    rules: List[Rule] = []
+    for lin, idx, has_bias in _ATTN_LINS[block_type]:
+        rules += _dense(_join(t, lin, "."), _join(f, f"Dense_{idx}", "/"), has_bias)
+    if noise:
+        rules.append((_join(t, "noise_strength", "."), _join(f, "noise_strength", "/"), "copy"))
+    return rules
+
+
 def _block(t: str, f: str, block_type: str, norm_layer: str, noise: bool = False) -> List[Rule]:
     rules = _norm(f"{t}.norm1", f"{f}/CustomNorm_0", norm_layer)
     rules += _norm(f"{t}.norm2", f"{f}/CustomNorm_1", norm_layer)
-    attn = _ATTN_CLS[block_type]
-    for lin, idx, has_bias in _ATTN_LINS[block_type]:
-        rules += _dense(f"{t}.attn.{lin}", f"{f}/{attn}/Dense_{idx}", has_bias)
-    if noise:
-        rules.append((f"{t}.attn.noise_strength", f"{f}/{attn}/noise_strength", "copy"))
-    rules += _dense(f"{t}.mlp.fc1", f"{f}/Mlp_0/Dense_0")
-    rules += _dense(f"{t}.mlp.fc2", f"{f}/Mlp_0/Dense_1")
+    rules += attention_rules(block_type, f"{t}.attn", f"{f}/{_ATTN_CLS[block_type]}", noise)
+    mlp = 0
+    if block_type == "full_with_cond_norm":  # the conditioning Mlp is built first
+        rules += _dense(f"{t}.cond.fc1", f"{f}/Mlp_0/Dense_0")
+        rules += _dense(f"{t}.cond.fc2", f"{f}/Mlp_0/Dense_1")
+        mlp = 1
+    rules += _dense(f"{t}.mlp.fc1", f"{f}/Mlp_{mlp}/Dense_0")
+    rules += _dense(f"{t}.mlp.fc2", f"{f}/Mlp_{mlp}/Dense_1")
     return rules
+
+
+def block_rules(block_type: str, norm_layer: str, noise: bool = False) -> List[Rule]:
+    """The rules of one ``nn.Block`` (the module itself)."""
+    return [(k[1:], f[1:], kind) for k, f, kind in _block("", "", block_type, norm_layer, noise)]
 
 
 def _multiblocks(t: str, f: str, depth: int, block_type: str, norm_layer: str) -> List[Rule]:
@@ -88,6 +121,7 @@ def _multiblocks(t: str, f: str, depth: int, block_type: str, norm_layer: str) -
     for i in range(depth):
         rules += _block(f"{t}.layers.{i}", f"{f}/Block_{i}", block_type, norm_layer)
     return rules
+
 
 
 def _conv_block(t: str, f: str, mode: str, norm_layer: str) -> List[Rule]:
@@ -167,7 +201,34 @@ def wif_rules(cfg) -> List[Rule]:
     return rules
 
 
-_RULES = {"pe": lvd_rules, "pg": flp_rules, "ii": wif_rules}
+def disc_rules(cfg=None, depth: int = 4) -> List[Rule]:
+    """The discriminator ("id"): Conv_0..Conv_depth with biases, and the
+    per-channel norms CustomNorm_0..depth-2 after the middle convs."""
+    rules: List[Rule] = []
+    for i in range(depth + 1):
+        rules += [(f"convs.{i}.weight", f"Conv_{i}/kernel", "conv"),
+                  (f"convs.{i}.bias", f"Conv_{i}/bias", "copy")]
+    for i in range(depth - 1):
+        rules += _norm(f"norms.{i}", f"CustomNorm_{i}", "ln2d")
+    return rules
+
+
+def wif_jax_leaf_order(cfg) -> List[str]:
+    """WIF's flax paths in the order ``jax.tree_util.tree_flatten`` visits
+    them: dict keys sorted at every level, so "_ConvBlock_10" comes before
+    "_ConvBlock_2"."""
+    return sorted((f for _, f, _ in wif_rules(cfg)), key=lambda f: f.split("/"))
+
+
+def wif_port_key(cfg, flax_path: str) -> str:
+    """The port's WIF parameter name of a flax path."""
+    for key, f, _ in wif_rules(cfg):
+        if f == flax_path:
+            return key
+    raise KeyError(f"WIF has no flax leaf {flax_path!r}")
+
+
+_RULES = {"pe": lvd_rules, "pg": flp_rules, "ii": wif_rules, "id": disc_rules}
 
 
 def _convert_leaf(arr: np.ndarray, kind: str) -> np.ndarray:
@@ -215,6 +276,13 @@ def _net_state_dict(module: torch.nn.Module, tree, rules: List[Rule], net: str):
     if unfilled:
         raise ValueError(f"port module {net!r} has parameters no leaf fills: {unfilled[:8]}")
     return new
+
+
+def load_from_jax(tree_np, module: torch.nn.Module, rules: List[Rule], what: str) -> None:
+    """Load a flax tree (nested dicts of numpy arrays, optionally under
+    "params") into ``module`` by ``rules`` (``attention_rules``,
+    ``block_rules``, ...), strictly."""
+    module.load_state_dict(_net_state_dict(module, tree_np, rules, what), strict=True)
 
 
 def from_jax(params_np, synthesizer) -> None:
@@ -331,8 +399,9 @@ def to_jax(synthesizer, grads: bool = False) -> Dict[str, dict]:
         for key, fpath, kind in _RULES[net](synthesizer.cfg):
             p = own[key]
             t = p.grad if grads else p
+            # a copy: a CPU tensor's numpy() shares the parameter's memory
             arr = np.zeros(tuple(p.shape), np.float32) if t is None else \
-                t.detach().float().cpu().numpy()
+                np.array(t.detach().float().cpu().numpy())
             node = tree
             *parents, leaf = fpath.split("/")
             for part in parents:

@@ -423,10 +423,13 @@ def load_reference_checkpoints(syn, ckpt_dir: str, which_iter) -> None:
     holds needs its file, and a checkpoint key that no rule takes and that
     is no known buffer, a net parameter that no key fills, or a shape that
     disagrees raises (``convert.from_jax``)."""
-    from ..convert import from_jax
+    from ..convert import from_jax, to_jax
 
     trees = {}
     for label in syn.nets():
+        if label == "id":  # the reference ships no discriminator: it keeps its own
+            trees[label] = to_jax(syn)[label]
+            continue
         path = _checkpoint_path(ckpt_dir, label, which_iter)
         if path is None:
             raise FileNotFoundError(f"no {label}_*net_{which_iter}.pth in {ckpt_dir}")

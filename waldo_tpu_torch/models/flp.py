@@ -105,7 +105,12 @@ class PoseDecoder(nn.Module):
         super().__init__()
         m = cfg.model
         if m.pg_modulate_noise:
-            raise NotImplementedError("pg_modulate_noise (cond-norm blocks) is not ported yet")
+            raise NotImplementedError(
+                "pg_modulate_noise is refused as in the JAX package, which cannot build such "
+                "an FLP: Synthesizer.init_params raises IndexError there (its init runs FLP "
+                "deterministically, so z_cond is None and the full_with_cond_norm Block feeds "
+                "None to its Mlp; waldo_tpu/models/flp.py:116-128, "
+                "waldo_tpu/nn/transform.py:384-388)")
         self.cfg = cfg
         c = m.embed_dim
         lo = m.obj_shape[0] * m.obj_shape[1]

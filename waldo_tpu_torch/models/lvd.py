@@ -423,3 +423,52 @@ def compute_occ(occ_score, eps=1e-6):
     occ = torch.cat([torch.ones((b, t, no, 1), dtype=occ.dtype, device=occ.device), occ], dim=3)
     occ = torch.cat([torch.zeros((b, t, 1, no + 1), dtype=occ.dtype, device=occ.device), occ], dim=2)
     return occ
+
+
+def time_dropout_draws(generator, b, t, no, device=None):
+    """reduce_time's time-dropout draws, in the JAX package's order: the
+    objects' frame index (B,1,1) and uniforms (B,T,No), then the
+    background's (B,1) and (B,T)."""
+    kw = dict(generator=generator, device=device)
+    return (torch.randint(0, t, (b, 1, 1), **kw), torch.rand((b, t, no), **kw),
+            torch.randint(0, t, (b, 1), **kw), torch.rand((b, t), **kw))
+
+
+def reduce_time(obj, bg, occ_obj_alpha, occ_bg_alpha, eps=1e-6, generator=None, draws=None):
+    """Occlusion-weighted mean over time of the layers' textures, each with
+    its alpha appended: obj (B,T,No,Ho,Wo,C), occ_obj_alpha (B,T,No,Ho,Wo,1)
+    -> (B,No,Ho,Wo,C+1); bg (B,T,H,W,C), occ_bg_alpha (B,T,H,W,1) ->
+    (B,H,W,C+1). Time dropout (``draws`` as ``time_dropout_draws`` makes
+    them, or drawn from ``generator``) keeps, per clip and layer, the frames
+    whose uniform is at least that of one frame drawn at random."""
+    b, t, no = occ_obj_alpha.shape[:3]
+    if draws is None and generator is not None:
+        draws = time_dropout_draws(generator, b, t, no, obj.device)
+    score_o = (occ_obj_alpha + 1) / 2 + eps  # B T No Ho Wo 1
+    score_b = (occ_bg_alpha + 1) / 2 + eps  # B T H W 1
+    if draws is not None:
+        ti_o, rd_o, ti_b, rd_b = draws
+        keep_o = rd_o >= rd_o.gather(1, ti_o.expand(b, 1, no))
+        score_o = score_o * keep_o.to(score_o.dtype)[..., None, None, None]
+        keep_b = rd_b >= rd_b.gather(1, ti_b)
+        score_b = score_b * keep_b.to(score_b.dtype)[..., None, None, None]
+    score_o = score_o / score_o.sum(dim=1, keepdim=True)
+    obj = (torch.cat([obj, occ_obj_alpha], dim=-1) * score_o).sum(dim=1)
+    score_b = score_b / score_b.sum(dim=1, keepdim=True)
+    bg = (torch.cat([bg, occ_bg_alpha], dim=-1) * score_b).sum(dim=1)
+    return obj, bg
+
+
+def reduce_comp(vid, occ, flow):
+    """Alpha-composite per-layer videos: vid (B,T,No+1,H,W,C+1) in [-1, 1]
+    (the last channel the alpha; the background's is taken as 1), occ
+    (B,T,No+1,No+1), flow (B,T-1,No+1,H,W,2) -> the video (B,T,H,W,C) in
+    [-1, 1], the occluded alphas (B,T,No+1,H,W) in [-1, 1] and the
+    composited flow (B,T-1,H,W,2)."""
+    vid = (vid + 1) / 2
+    alpha = torch.cat([torch.ones_like(vid[:, :, :1, ..., -1:]), vid[:, :, 1:, ..., -1:]], dim=2)
+    occp = torch.prod(1 - alpha[:, :, :, None] * occ[:, :, :, :, None, None, None], dim=2)
+    alpha = occp * alpha
+    out = (alpha * vid[..., :-1]).sum(dim=2)
+    flow = (alpha[:, :-1] * flow).sum(dim=2)
+    return 2 * out - 1, 2 * alpha[..., 0] - 1, flow

@@ -3,10 +3,13 @@ waldo_tpu/models/synthesizer.py).
 
 Batch layout (channel-last): vid (B,T,Hd,Wd,3) in [-1,1], lyt
 (B,T,Hd,Wd,Nl) scaled to {-5, 5}, flow (B,T,H,W,2). Ported: ``predict``
-(vid_prediction) and the training losses of the three nets:
-``extract_object_loss`` (LVD; modes vid_object_extractor and
-img_object_extractor), ``generate_pose_loss`` (FLP, vid_pose_generator) and
-``inpaint_loss`` (WIF, vid_inpainting, without the GAN terms). FLP and WIF
+(vid_prediction), ``decode_layer`` (the layers' textures reduced over time)
+and the training losses of the four nets: ``extract_object_loss`` (LVD;
+modes vid_object_extractor and img_object_extractor),
+``generate_pose_loss`` (FLP, vid_pose_generator), ``inpaint_loss`` (WIF,
+vid_inpainting, with the adversarial term ``adv`` and its adaptive lambda)
+and ``discriminate_loss`` (the discriminator "id", vid_inpainting_dis, a
+hinge loss on the first predicted frame against the real one). FLP and WIF
 train against a frozen LVD teacher, run under ``torch.no_grad``.
 ``visuals`` computes what the training logger renders of each mode.
 
@@ -26,14 +29,15 @@ from typing import Dict, Optional
 
 import torch
 
+from ..convert import wif_jax_leaf_order, wif_port_key
 from ..eval.lpips import LPIPS
-from ..nn import init_module, resolve_dtype
+from ..nn import Discriminator, get_gan_loss, init_module, resolve_dtype
 from ..ops import EdgeExtractor, gaussian_blur, resize
-from ..parallel import BatchShard, RowStream
+from ..parallel import BatchShard, RowStream, all_reduce_mean
 from ..utils import resolve_device
 from ..utils.profiling import annotate
 from .flp import FLPNet
-from .lvd import LVDNet, bg_alpha_buffer, compute_occ
+from .lvd import LVDNet, bg_alpha_buffer, compute_occ, reduce_time
 from .warper import Warper
 from .wif import WIFNet
 
@@ -67,11 +71,15 @@ def _topk_mean(x, k, dim):
 
 
 class Synthesizer:
-    """Holds the nets (``lvd``, ``flp``, ``wif``, the JAX package's "pe",
-    "pg" and "ii") and the parameterless warper on one device.
+    """Holds the nets (``lvd``, ``flp``, ``wif`` and ``disc``, the JAX
+    package's "pe", "pg", "ii" and "id") and the parameterless warper on
+    one device. The discriminator exists when ``use_id`` is set or
+    ``adv`` or ``dis`` is among ``vid_inpainting_losses``; its losses are
+    the hinge ones.
 
     Parameters are initialized from ``torch.Generator().manual_seed(seed)``
-    with the JAX package's laws and zero-inits, or loaded from a JAX tree
+    with the JAX package's laws and zero-inits (the discriminator from a
+    generator of its own, seeded ``seed + 7``), or loaded from a JAX tree
     with ``waldo_tpu_torch.convert.from_jax``. The nets compute in
     ``cfg.compute_dtype``."""
 
@@ -84,9 +92,20 @@ class Synthesizer:
         self.lvd = LVDNet(cfg, dtype) if m.use_pe else None
         self.flp = FLPNet(cfg, dtype) if m.use_pg else None
         self.wif = WIFNet(cfg, dtype) if m.use_ii else None
+        use_gan = m.use_id or bool({"adv", "dis"} & set(m.vid_inpainting_losses))
+        self.disc = Discriminator(dtype=dtype) if use_gan else None
+        self.gan_g_loss, self.gan_d_loss = get_gan_loss("hinge")
         for net in self.nets().values():
-            init_module(net, gen)
+            init_module(net, torch.Generator().manual_seed(seed + 7) if net is self.disc else gen)
             net.to(self.device).eval()
+        # the WIF parameter whose gradients set the adaptive lambda: the JAX
+        # package's last leaf, in its tree's flattening order, whose path
+        # names "from_emb" or "Conv" (at ii_depth 6 the 4th deconv block's
+        # norm scale, "_ConvBlock_9": "_ConvBlock_10" sorts before "_ConvBlock_2")
+        self.adaptive_leaf = None
+        if self.wif is not None:
+            leaf = [f for f in wif_jax_leaf_order(cfg) if "from_emb" in f or "Conv" in f][-1]
+            self.adaptive_leaf = wif_port_key(cfg, leaf)
         self.warper = Warper(cfg, device=self.device)
         self.edge = EdgeExtractor(kernel_size=m.edge_size)
         # the layout classes the losses read, as device indices (indexing
@@ -109,7 +128,7 @@ class Synthesizer:
 
     def nets(self) -> Dict[str, torch.nn.Module]:
         """The nets under the JAX package's parameter-tree keys."""
-        nets = {"pe": self.lvd, "pg": self.flp, "ii": self.wif}
+        nets = {"pe": self.lvd, "pg": self.flp, "ii": self.wif, "id": self.disc}
         return {k: v for k, v in nets.items() if v is not None}
 
     # ------------------------------------------------------------------
@@ -153,6 +172,20 @@ class Synthesizer:
             grids = self.warper(obj_pose, bg_pose[:, :, 0])
         occ = compute_occ(occ_score)
         return occ, obj_alpha, bg_alpha, grids
+
+    def decode_layer(self, real_input, grids, occ, obj_alpha, bg_alpha, generator=None,
+                     draws=None):
+        """The layers' textures: the input (B,T,H,W,C) gathered into each
+        layer's frame, reduced over time by the occlusion-aware alphas
+        (obj (B,No,Ho,Wo,C+1), bg (B,H,W,C+1)), and the output alphas
+        (B,T,No+1,H,W,1). Time dropout when ``generator`` or ``draws`` is
+        given (``models.lvd.reduce_time``)."""
+        obj, bg = self.warper.layer_from_input(real_input, grids)
+        occ_obj_alpha, occ_bg_alpha, output_alpha = self.warper.alpha_to_alpha(
+            obj_alpha, bg_alpha, grids, occ)
+        obj, bg = reduce_time(obj, bg, occ_obj_alpha, occ_bg_alpha, generator=generator,
+                              draws=draws)
+        return obj, bg, output_alpha
 
     def decode_output(self, real_input, grids, occ, obj_alpha, bg_alpha, cls,
                       ctx_ts, pred_ts, restrict_to_ctx=None, hd_window=None,
@@ -209,7 +242,11 @@ class Synthesizer:
         the LVD parameters."""
         cfg, m = self.cfg, self.cfg.model
         if m.dropout > 0:
-            raise NotImplementedError("LVD dropout is not ported: the scripts train with 0.0")
+            raise NotImplementedError(
+                "LVD dropout in training is refused as in the JAX package, where flax raises "
+                "InvalidRngError ('Dropout_0 needs PRNG for \"dropout\"'): its lvd_pass runs "
+                "the LVD with deterministic=False and no \"dropout\" rng "
+                "(waldo_tpu/models/synthesizer.py:173-183); at inference dropout is the identity")
         losses = m.vid_object_extractor_losses
         vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
         if is_img:
@@ -471,8 +508,11 @@ class Synthesizer:
         parameters only."""
         m = self.cfg.model
         if m.dropout > 0:
-            raise NotImplementedError("FLP dropout is not ported (ROADMAP.md queue 1 item 10): "
-                                      "the scripts train with 0.0")
+            raise NotImplementedError(
+                "FLP dropout in training is refused as in the JAX package, where flax raises "
+                "InvalidRngError ('Dropout_0 needs PRNG for \"dropout\"'): its FLP call passes "
+                "only a \"noise\" rng (waldo_tpu/models/synthesizer.py:552-556); at inference "
+                "dropout is the identity")
         losses = m.vid_pose_generator_losses
         vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
         b, t = vid.shape[:2]
@@ -512,19 +552,11 @@ class Synthesizer:
     # vid_inpainting
     # ------------------------------------------------------------------
 
-    def inpaint_loss(self, batch, global_iter=0, generator: Optional[torch.Generator] = None,
-                     shard: Optional[BatchShard] = None):
-        """The WIF training loss, without the GAN terms (``adv``): the frozen
-        LVD teacher's layers warp the context frames to each frame after
-        them (the unfused training warp, under ``torch.no_grad``), and WIF's
-        fusion of them is held to the real frames by L1 (``sharp_vid``) and,
-        when the weights exist, the VGG16 LPIPS (``lpips_vid``). Nothing in
-        it is random, and every term is a mean over its clips' equal parts;
-        ``generator`` and ``shard`` are taken for the trainer's sake. Returns
-        (loss, metrics); the loss is differentiable in the WIF parameters
-        only."""
+    def _inpaint_decode(self, batch):
+        """The frozen LVD teacher's decode of the frames after the context
+        (the unfused training warp, under ``torch.no_grad``): the
+        reconstructed video (B,Tp,Hd,Wd,3) and WIF's input raw_output."""
         m = self.cfg.model
-        losses = m.vid_inpainting_losses
         vid, lyt, flow = batch["vid"], batch["lyt"], batch["flow"]
         b, t = vid.shape[:2]
         ctx_len = m.ctx_len
@@ -539,24 +571,104 @@ class Synthesizer:
             out = self.decode_output(torch.cat([vid, lyt], dim=-1), grids, occ, obj_alpha,
                                      bg_alpha, p["cls"], ctx_ts, pred_ts,
                                      restrict_to_ctx=False, hd_window=ctx_len)
-            rec_vid, raw_output = out[0][..., :3], out[5]
-            del out, p, grids
+        return out[0][..., :3], out[5]
 
+    def inpaint_loss(self, batch, global_iter=0, generator: Optional[torch.Generator] = None,
+                     shard: Optional[BatchShard] = None, adv: bool = False):
+        """The WIF training loss: the frozen LVD teacher's layers warp the
+        context frames to each frame after them (``_inpaint_decode``), and
+        WIF's fusion of them is held to the real frames by L1
+        (``sharp_vid``), when the weights exist the VGG16 LPIPS
+        (``lpips_vid``) and, with ``adv`` (the trainer's step; eval leaves
+        it off, as the JAX package's does), the discriminator's hinge loss
+        on the first predicted frame (``adv``), through D's parameters
+        detached, so that none of them takes a gradient. Its weight is
+        ``lambda_adv`` or, with ``use_adaptive_lambda``, the ratio of the
+        gradient norms of L1 and of adv on one WIF parameter
+        (``adaptive_leaf``), detached. Nothing in it is random, and every
+        term is a mean over its clips' equal parts, so under data
+        parallelism only lambda's two gradients are averaged over the ranks
+        (``shard``). Returns (loss, metrics); the loss is differentiable in
+        the WIF parameters only."""
+        m = self.cfg.model
+        losses = m.vid_inpainting_losses
+        vid = batch["vid"]
+        shard = shard or BatchShard.whole(vid.shape[0])
+        rec_vid, raw_output = self._inpaint_decode(batch)
         with annotate("wif/fuse_pred"):
             inp = self.wif(raw_output)  # (B, Tp, Hd, Wd, 3)
-        tgt = vid[:, ctx_len:]
+        tgt = vid[:, m.ctx_len:]
         metrics = {"sharp_vid": (inp - tgt).abs().mean(),
                    "sharp_rec": (rec_vid - tgt).abs().mean()}
         metrics["sharp_delta"] = metrics["sharp_vid"] - metrics["sharp_rec"]
-        nll = torch.zeros((), device=dev)
+        nll = torch.zeros((), device=vid.device)
         if "sharp_vid" in losses:
             nll = nll + metrics["sharp_vid"] * m.lambda_sharp_vid
         if "lpips_vid" in losses and self.lpips is not None:
             with annotate("loss/lpips"):
                 metrics["lpips_vid"] = self.lpips(inp, tgt).mean()
             nll = nll + metrics["lpips_vid"] * m.lambda_lpips_vid
+        if adv and "adv" in losses and self.disc is not None:
+            with annotate("loss/adv"):
+                frozen = {k: p.detach() for k, p in self.disc.named_parameters()}
+                d_fake = torch.func.functional_call(self.disc, frozen, (inp[:, 0],))
+                metrics["adv"] = self.gan_g_loss(d_fake)
+                lam = m.lambda_adv
+                if m.use_adaptive_lambda:
+                    lam = self._adaptive_lambda(metrics["sharp_vid"] * m.lambda_sharp_vid,
+                                                metrics["adv"], shard)
+                    metrics["adaptive_lambda"] = lam
+            nll = nll + metrics["adv"] * lam
         metrics["loss"] = nll
         return nll, {k: v.detach() for k, v in metrics.items()}
+
+    def _adaptive_lambda(self, l1, adv, shard: BatchShard):
+        """clip(|d l1/dw| / (|d adv/dw| + 1e-4), 0, 1e4) on the WIF parameter
+        w = ``adaptive_leaf``, each norm sqrt(sum g^2 + 1e-12), detached. The
+        two gradients come from the step's own graph, averaged over the
+        ranks: the global batch's gradients, so every rank takes one
+        lambda."""
+        # the gradients are taken for every parameter of the conv block that
+        # holds w, and w's kept: asked for a norm's affine parameters alone,
+        # torch's CPU group_norm backward on channels-last input crashes
+        # (torch 2.13); the block's conv weight makes it pass the gradient on
+        block = self.adaptive_leaf.rsplit(".", 2)[0]
+        params = dict(self.wif.get_submodule(block).named_parameters())
+        i = list(params).index(self.adaptive_leaf[len(block) + 1:])
+        g_l1 = torch.autograd.grad(l1, list(params.values()), retain_graph=True)[i]
+        g_adv = torch.autograd.grad(adv, list(params.values()), retain_graph=True)[i]
+        if shard.world > 1:
+            g_l1, g_adv = all_reduce_mean(g_l1), all_reduce_mean(g_adv)
+        norm = lambda g: torch.sqrt((g.float() ** 2).sum() + 1e-12)
+        return (norm(g_l1) / (norm(g_adv) + 1e-4)).clamp(0.0, 1e4).detach()
+
+    def _fused_frame(self, batch):
+        """WIF's first predicted frame (B,Hd,Wd,3) from the teacher's decode,
+        without gradients."""
+        with torch.no_grad():
+            _, raw_output = self._inpaint_decode(batch)
+            with annotate("wif/fuse_pred"):
+                return self.wif(raw_output)[:, 0]
+
+    def discriminate_loss(self, batch, global_iter=0,
+                          generator: Optional[torch.Generator] = None,
+                          shard: Optional[BatchShard] = None):
+        """The discriminator's step: its hinge loss on the real first
+        predicted frame against WIF's (``_fused_frame``). Every term is a
+        mean over equal parts of the clips, so the ranks' mean is the
+        global batch's; ``generator`` and ``shard`` are taken for the
+        trainer's sake. Returns (loss, metrics: dis, real_score,
+        fake_score, loss = dis * lambda_dis); the loss is differentiable in
+        the discriminator's parameters only."""
+        m = self.cfg.model
+        fake = self._fused_frame(batch)
+        with annotate("loss/dis"):
+            d_real = self.disc(batch["vid"][:, m.ctx_len])
+            d_fake = self.disc(fake)
+            dis = self.gan_d_loss(d_real, d_fake)
+        metrics = {"dis": dis, "real_score": d_real.mean(), "fake_score": d_fake.mean(),
+                   "loss": dis * m.lambda_dis}
+        return metrics["loss"], {k: v.detach() for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
     # visuals for the training logger

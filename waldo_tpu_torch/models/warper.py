@@ -11,7 +11,9 @@ Per-layer maps keep the layer axis right after time ((B,T,No+1,H,W,C));
 
 Ported: grid construction (the scatter inversion of the training configs
 and the iterative one of the flagship predict), the layer <-> output
-samples, the flow synthesis and context fusion in both forms (the predict
+samples, the texture gathers into the layers' frames (``decode_layer``'s
+``layer_from_input`` and the occlusion-aware ``alpha_to_alpha``), the flow
+synthesis and context fusion in both forms (the predict
 path's ``ctx_uniform=True``, one fused alpha_ctx warp; the training path's
 unfused per-layer sample, occlusion product and gathered context fusion,
 which are differentiable), and the per-layer flows the MAT post-processing
@@ -98,6 +100,26 @@ class Warper:
         src_bg = src_bg.reshape((b, t) + tuple(src_bg.shape[1:]))
         return WarpGrids(tgt_obj, src_obj, tgt_bg, src_bg)
 
+    # ---- texture gathers into the layers' frames ----
+
+    def obj_from_input(self, x, grids: WarpGrids):
+        """x (B,T,H,W,C) or per-layer (B,T,No+1,H,W,C) -> obj (B,T,No,Ho,Wo,C)."""
+        b, t = x.shape[:2]
+        if x.dim() == 5:
+            x = x[:, :, None].expand((b, t, self.num_obj) + tuple(x.shape[2:]))
+        else:
+            x = x[:, :, 1:]
+        return _bsample(x, grids.tgt_obj)
+
+    def bg_from_input(self, x, grids: WarpGrids):
+        """x (B,T,H,W,C) or per-layer (B,T,No+1,H,W,C) -> bg (B,T,H,W,C)."""
+        if x.dim() == 6:
+            x = x[:, :, 0]
+        return _bsample(x, grids.tgt_bg)
+
+    def layer_from_input(self, x, grids):
+        return self.obj_from_input(x, grids), self.bg_from_input(x, grids)
+
     # ---- layer -> output samples ----
 
     def obj_to_output(self, obj, grids: WarpGrids, delta=1.0):
@@ -138,6 +160,20 @@ class Warper:
         if dtype is not None:
             out = out.to(dtype)
         return out.to(alpha.dtype)
+
+    def alpha_to_alpha(self, obj_alpha, bg_alpha, grids, occ):
+        """The layers' alphas (obj (B,No,Ho,Wo,1), bg (B,H,W,1)) in each
+        frame: the output alphas (B,T,No+1,H,W,1) in [0, 1] after the
+        occlusion product, and that product gathered back into the layers'
+        frames times their alphas, in [-1, 1]."""
+        b, t = grids.src_obj.shape[:2]
+        obj_alpha = obj_alpha[:, None].expand((b, t) + tuple(obj_alpha.shape[1:]))
+        bg_alpha = bg_alpha[:, None].expand((b, t) + tuple(bg_alpha.shape[1:]))
+        out = (self.layer_to_output(obj_alpha, bg_alpha, grids) + 1.0) / 2.0
+        occp = self.occlusion_product(out, occ)
+        out = occp * out
+        obj_occ, bg_occ = self.layer_from_input(occp, grids)
+        return obj_occ * (obj_alpha + 1.0) - 1.0, bg_occ * (bg_alpha + 1.0) - 1.0, out
 
     # ---- dense flow synthesis ----
 

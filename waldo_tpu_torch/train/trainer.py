@@ -2,18 +2,25 @@
 
 Iteration-based: one step per active mode per iteration, periodic eval with
 a metric-gated "best_vid" checkpoint, periodic "latest" and numbered
-checkpoints, ``cont_train`` resume. Ported modes: vid_object_extractor and
-img_object_extractor (LVD), vid_pose_generator (FLP) and vid_inpainting (WIF,
-without the GAN losses ``adv`` and ``dis``). Only the nets of the run's
-modes take optimizer steps; the others (FLP's and WIF's LVD teacher,
-restored from ``--s_load_path``) are frozen: their parameters ask for no
-gradient. Every net is saved. The batches come from the prefetching loader,
+checkpoints, ``cont_train`` resume. Modes: vid_object_extractor and
+img_object_extractor (LVD), vid_pose_generator (FLP), vid_inpainting (WIF,
+with the adversarial term when ``adv`` is among its losses) and, when
+``dis`` is, vid_inpainting_dis (the discriminator "id"), which steps after
+vid_inpainting in every iteration, as in the JAX package. Each mode's step
+takes a loader batch of its own, so a GAN iteration pulls two. Only the
+nets of the run's modes take optimizer steps; the others (FLP's and WIF's
+LVD teacher, restored from ``--s_load_path``) are frozen: their parameters
+ask for no gradient. Every net is saved; a resume restores "pe", "pg" and
+"ii" but not "id", as the JAX trainer does, so a resumed GAN run starts its
+discriminator anew. The batches come from the prefetching loader,
 ``cfg.data.num_workers`` threads making the clips. The TensorBoard logger
 (train/logger.py) writes under ``cfg.log_path``: each logged iteration's
 training metrics under "<mode>/train", the eval means under "vid/eval" and,
 when ``cfg.log_freq`` is set, ``Synthesizer.visuals`` of the first two clips
-(never for img_object_extractor). The visuals run on the device outside any
-``try``, so a fault there raises; only their rendering on the host is caught.
+(never for img_object_extractor, nor for vid_inpainting_dis, whose visuals
+the JAX package's ``Synthesizer.visuals`` refuses). The visuals run on the
+device outside any ``try``, so a fault there raises; only their rendering on
+the host is caught.
 
 Under torchrun (cli/train.py) it runs data-parallel, one process per card
 (parallel/mesh.py): each rank steps on its rows of the global batch
@@ -48,6 +55,7 @@ MODE_TO_NET = {
     "img_object_extractor": "pe",
     "vid_pose_generator": "pg",
     "vid_inpainting": "ii",
+    "vid_inpainting_dis": "id",
 }
 
 
@@ -63,10 +71,9 @@ class Trainer:
         for mode in self._train_modes:
             if mode not in MODE_TO_NET:
                 raise ValueError(f"unknown training mode {mode!r}")
-        gan = sorted({"adv", "dis"} & set(cfg.model.vid_inpainting_losses))
-        if "vid_inpainting" in self._train_modes and gan:
-            raise NotImplementedError(f"the GAN losses {gan} of vid_inpainting are not ported "
-                                      f"yet (ROADMAP.md queue 1 item 7)")
+        # the discriminator's step follows the generator's
+        if "vid_inpainting" in self._train_modes and "dis" in cfg.model.vid_inpainting_losses:
+            self._train_modes.append("vid_inpainting_dis")
         self.syn = Synthesizer(cfg, device=device, seed=cfg.seed)
         self.device = self.syn.device
         self.ckpt = CheckpointManager(cfg.checkpoint_path)
@@ -92,6 +99,7 @@ class Trainer:
     # -- checkpoint wiring --
 
     def _maybe_restore(self):
+        # "id" is not restored, as in the JAX trainer
         m = self.cfg.model
         specs = [("pe", m.load_path, m.which_iter), ("pg", m.pg_load_path, m.pg_iter),
                  ("ii", m.ii_load_path, m.ii_iter)]
@@ -127,13 +135,15 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in batch.items() if isinstance(v, np.ndarray)}
 
-    def _loss(self, mode, batch, it, generator):
+    def _loss(self, mode, batch, it, generator, train=False):
         # the batch is this rank's rows of the global batch
         shard = mesh.BatchShard.of_rank(batch["vid"].shape[0])
         if mode == "vid_pose_generator":
             return self.syn.generate_pose_loss(batch, it, generator=generator, shard=shard)
-        if mode == "vid_inpainting":
-            return self.syn.inpaint_loss(batch, it, generator=generator, shard=shard)
+        if mode == "vid_inpainting":  # the adversarial term in training only
+            return self.syn.inpaint_loss(batch, it, generator=generator, shard=shard, adv=train)
+        if mode == "vid_inpainting_dis":
+            return self.syn.discriminate_loss(batch, it, generator=generator, shard=shard)
         return self.syn.extract_object_loss(batch, it, is_img=mode.startswith("img"),
                                             generator=generator, shard=shard)
 
@@ -143,7 +153,7 @@ class Trainer:
         tensors, with ``nancount``."""
         state = self.states[MODE_TO_NET[mode]]
         state.zero_grad()
-        loss, metrics = self._loss(mode, batch, it, self.generator)
+        loss, metrics = self._loss(mode, batch, it, self.generator, train=True)
         loss.backward()
         state.apply(loss)
         metrics["nancount"] = state.nancount.clone()
@@ -256,8 +266,11 @@ class Trainer:
         clips copied to the host and rendered by the logger. The contexts of
         "prev_rd" come from a generator of their own, seeded by the
         iteration, so logging does not move the training draws."""
-        if mode == "img_object_extractor":
-            return  # image batches lack the video shapes the renderers expect
+        if mode in ("img_object_extractor", "vid_inpainting_dis"):
+            # image batches lack the video shapes the renderers expect; the
+            # discriminator's mode has no visuals (the JAX trainer's call
+            # raises ValueError inside its try and prints a line)
+            return
         generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed + it)
         arrays, pts = self.syn.visuals(mode, batch, generator=generator)
         host = lambda d: {k: v[:max_items].float().cpu().numpy() for k, v in d.items()}
