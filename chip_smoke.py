@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k1-stress REPS [--k1-cases N]
     python3 chip_smoke.py --k2-fwd
     python3 chip_smoke.py --gan [--out results.json]
+    python3 chip_smoke.py --seq
 
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
@@ -115,6 +116,21 @@ Phases, in order; any failure exits non-zero:
      timed beside their bounds; the training CLI under torchrun (NCCL, world
      1); Synthesizer.decode_layer on phase 7's batch against its plain
      samples; small float32 G and D steps card vs CPU, lambda included.
+ 14. sequence sharding (phase_seq, also alone with --seq): two gloo ranks
+     of a 1 x 2 ("data", "seq") grid on card 0 (torchrun, seq_worker) step
+     (a) LVD at train_lvd.sh's width and (b) FLP at train_flp.sh's from
+     (a)'s saved LVD, both at B = 4 (both ranks hold the whole batch on
+     one card), SEQ_STEPS steps through Trainer.step, the seq ranks
+     splitting the tokens of LVD's pose estimator and layer estimator
+     (FLP's encoder, 255 tokens, stays whole): strict launch counts per
+     step, the ranks' parameters bitwise equal after each step, the loss
+     and parameters against world 1 at B = 4 in this process, ms a step
+     against world 1's, the gloo bytes a step, each rank's peak memory;
+     (c) where there are two cards or more, (a) with NCCL, a card a rank,
+     on a W/2 x 2 grid at train_lvd.sh's B = 8; (d) the VGG19 loss card vs
+     CPU and timed on 8 frame pairs of 512x1024; (e) a MAT Generator at
+     128 with truncation_cutoff, update_w_avg, return_stg1 and a bias-free
+     layer card vs CPU, bias_act once per layer call.
 Phases 7-9 also time the training loop's iterations (a batch from the
 prefetching loader, its copy, one step) with the script's loader workers
 and (phases 7, 8) with one, beside the host's time to make one batch's
@@ -148,6 +164,7 @@ the fused warp REPS times each into outputs that start as NaN (k1_stress);
 the last line is its JSON summary.
 With --gan only phases 1, 2 and 13 run, the teacher a seeded LVD slot at
 train_lvd.sh's flags (gan_teacher); the last line is its JSON summary.
+With --seq only phases 1, 2 and 14 run; the last line is its JSON summary.
 With --k2-fwd only phases 1 and 2 run, then K2's forward on its edge cases
 and at every row's shapes on dense inputs (k2_fwd_study, with the L2 test:
 a texture shared by tp_sz 14 grid rows against its 56 copies); the last
@@ -4110,35 +4127,46 @@ def world1_reference(dev, root):
     return losses, params
 
 
-def compare_ranks(got, want, label):
+def compare_ranks(got, want, label, steps=DIST_STEPS, strict=True):
     """The ranks' run against world 1: the ranks bitwise equal after each
     step; the ranks' mean loss within 2e-4 relative of world 1's; each
-    parameter within 4e-4 (what two Adam steps at lr 1e-4 can move one, so
-    an element whose gradient sits near 0 may take the other direction),
-    and 99.9 % of each tensor's elements within 2e-6 (tests/test_torch_
-    train.py's tolerances for two steps against JAX)."""
+    parameter within 2 x 1e-4 x ``steps`` (4e-4 for two steps: what that
+    many Adam steps at lr 1e-4 can move one, so an element whose gradient
+    sits near 0 may take the other direction), and 99.9 % of each tensor's
+    elements within 2e-6 (tests/test_torch_train.py's tolerances for two
+    steps against JAX); with ``strict`` False only the ranks' equality is
+    held here, and the caller judges the numbers returned."""
     w_losses, w_params = want
+    tol = 2e-4 * steps
     res = {"equal_after_each_step": got["equal"], "loss_rel_err": [], "ranks": got["ranks"]}
-    for it in range(DIST_STEPS):
+    for it in range(steps):
         mean = float(np.mean([r["losses"][it] for r in got["ranks"]]))
         res["loss_rel_err"].append(abs(mean - w_losses[it]) / abs(w_losses[it]))
-    worst, worst_share = 0.0, 0.0
-    for g, w in zip(got["params"], w_params):
+    worst, worst_share, off = 0.0, 0.0, []
+    names = got.get("names") or [str(i) for i in range(len(w_params))]
+    for name, g, w in zip(names, got["params"], w_params):
         diff = (g - w).abs()
         worst = max(worst, float(diff.max()))
-        worst_share = max(worst_share, float((diff > 2e-6).float().mean()))
-    res.update(param_max_err=worst, param_share_over_2e6=worst_share)
+        share = float((diff > 2e-6).float().mean())
+        worst_share = max(worst_share, share)
+        if share > 1e-3:
+            off.append((name, tuple(w.shape), int((diff > 2e-6).sum()), float(diff.max()),
+                        float(w.abs().max())))
+    res.update(param_max_err=worst, param_share_over_2e6=worst_share, tensors_off=off)
+    if off:
+        log(f"{label}: tensors with more than 1e-3 of their elements over 2e-6 from world 1 "
+            f"(name, shape, count, max|err|, max|world 1|): {off[:12]}")
     log(f"{label}: ranks bitwise equal after each step {got['equal']}; mean loss against world "
         f"1 relative {['%.3g' % e for e in res['loss_rel_err']]} (tol 2e-4); parameters max|err| "
-        f"{worst:.3g} (tol 4e-4), the largest share of a tensor's elements over 2e-6 "
+        f"{worst:.3g} (tol {tol:.3g}), the largest share of a tensor's elements over 2e-6 "
         f"{worst_share:.3g} (tol 1e-3)")
     for r in got["ranks"]:
         log(f"  rank {r['rank']} on {r['device']}: losses {['%.6f' % v for v in r['losses']]}, "
             f"peak {r['peak_gb']:.2f} GB, a step {r['step_ms']:.2f} ms, the {got['all_reduce_bytes']}"
             f"-byte all-reduce {r['all_reduce_ms']:.3f} ms")
     check(all(got["equal"]), f"{label}: the ranks' parameters differ")
-    check(max(res["loss_rel_err"]) <= 2e-4 and worst <= 4e-4 and worst_share <= 1e-3,
-          f"{label} disagrees with world 1")
+    check(not strict or (max(res["loss_rel_err"]) <= 2e-4 and worst <= tol
+                         and worst_share <= 1e-3), f"{label} disagrees with world 1")
     return res
 
 
@@ -4240,6 +4268,9 @@ def phase_dist(dev, root):
 
 GAN_LOSSES = "sharp_vid lpips_vid adv dis"
 GAN_TURNS = 2  # turns of phase 9b's plain WIF step and the G step, TRAIN_TIMED steps each
+# iterations of the GAN through the training CLI under torchrun: one steps
+# both modes and saves every slot (3 took ~20 s more of a 1200 s budget)
+GAN_CLI_ITERS = 1
 
 
 def gan_flags(root, lvd_dir, *extra):
@@ -4274,11 +4305,11 @@ def gan_turns(tr, batch):
 
 def gan_torchrun(root, lvd_dir):
     """The training CLI with the GAN flags under torchrun, NCCL at world 1,
-    TRAIN_ITERS iterations: the group reported, both modes' losses logged
+    GAN_CLI_ITERS iterations: the group reported, both modes' losses logged
     finite with no skipped step, the "id" slot saved."""
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
-    flags = gan_flags(root, lvd_dir, "--datetime", "gan_dist", "--num_iter", str(TRAIN_ITERS),
+    flags = gan_flags(root, lvd_dir, "--datetime", "gan_dist", "--num_iter", str(GAN_CLI_ITERS),
                       "--log_freq", "0")
     secs, out = torchrun(1, ["-m", "waldo_tpu_torch.cli.train"] + flags, "torchrun cli.train GAN")
     cfg_line = [ln for ln in out.splitlines() if ln.startswith("[dist]")]
@@ -4293,13 +4324,13 @@ def gan_torchrun(root, lvd_dir):
                 "vid_inpainting_dis/train/dis", "vid_inpainting/train/nancount",
                 "vid_inpainting_dis/train/nancount"):
         res[tag] = [(e.step, e.value) for e in acc.Scalars(tag)]
-        check([st for st, _ in res[tag]] == list(range(TRAIN_ITERS))
+        check([st for st, _ in res[tag]] == list(range(GAN_CLI_ITERS))
               and all(np.isfinite(v) for _, v in res[tag])
               and (not tag.endswith("nancount") or all(v == 0 for _, v in res[tag])),
               f"{tag}: {res[tag]}")
     slots = sorted(os.listdir(os.path.join(root, "checkpoints", run[0])))
     check("id_latest.npz" in slots and "ii_latest.npz" in slots, f"slots {slots}")
-    log(f"torchrun -m waldo_tpu_torch.cli.train with the GAN losses ({TRAIN_ITERS} iterations): "
+    log(f"torchrun -m waldo_tpu_torch.cli.train with the GAN losses ({GAN_CLI_ITERS} iterations): "
         f"{secs:.1f} s; {cfg_line}; losses {res['vid_inpainting/train/loss']}, dis "
         f"{res['vid_inpainting_dis/train/dis']}, lambda "
         f"{res['vid_inpainting/train/adaptive_lambda']}")
@@ -4470,6 +4501,442 @@ def phase_gan(dev, card_name, root, lvd_dir, profile_dir=None):
     return res, rows
 
 
+# ---------------------------------------------------------------------------
+# sequence sharding over a (data, seq) grid, the VGG19 loss, MAT's options
+# (phase 14)
+# ---------------------------------------------------------------------------
+
+SEQ_STEPS = 3  # steps the seq ranks compare with world 1
+# clips a step: train_lvd.sh's 8 halved, since at 1 x 2 both seq ranks hold
+# the whole batch on the one card (train_flp.sh's is 4 already)
+SEQ_BATCH = 4
+SEQ_GRID = ["--mesh_shape", "1,2", "--mesh_axes", "data,seq"]
+SEQ_MODES = (("lvd", "vid_object_extractor", "pe"), ("flp", "vid_pose_generator", "pg"))
+# launches a step: LVD's K2' forward and backward, K2's batch mode and the
+# pre-pass once each; FLP's path launches none
+SEQ_LAUNCHES = {"lvd": {"grid_sample_per_channel": 1, "grid_sample_per_channel_bwd": 1,
+                        "grid_sample": 1, "plane_boxes": 1},
+                "flp": {}}
+VGG_PAIRS = 8  # frame pairs at train_wif.sh's 512x1024 in the VGG19 loss's timing
+
+
+def seq_flags(root, net, lvd_dir=None, *extra, batch=SEQ_BATCH):
+    """train_lvd.sh's flags (net "lvd", the zero pose head, as phase 12's
+    pair) or train_flp.sh's (net "flp", the teacher in ``lvd_dir``) at B =
+    ``batch`` (None: the script's), saving under ``root``."""
+    if net == "lvd":
+        flags = train_lvd_flags() + ["--s_pe_estimator_init_mode", "zero"]
+    else:
+        flags = train_lvd_flags(FLP_SCRIPT) + ["--s_load_path", lvd_dir]
+    flags += ["--data.dataset", "synthetic", "--save_path", root, "--datetime", f"seq{net}"]
+    return flags + (["--batch_size_vid", str(batch)] if batch else []) + list(extra)
+
+
+def seq_worker(out_dir, root, backend="gloo"):
+    """One rank of phase 14's grid (torchrun). With gloo, one of two ranks
+    on card 0, the grid 1 x 2 of ("data", "seq") at B = SEQ_BATCH: (a)
+    SEQ_STEPS LVD steps at train_lvd.sh's width through Trainer.step on one
+    fixed batch, then the trainer's LVD saved as (b)'s teacher with a seeded
+    random pose head, (b) SEQ_STEPS FLP steps at train_flp.sh's. With NCCL,
+    a card a rank, the grid W/2 x 2 at train_lvd.sh's batch: (a) alone. Each
+    step's launches, bytes through the collectives (the step's gradient
+    all-reduce apart from the token gathers) and token shards, the ranks'
+    parameters against rank 0's (bitwise) after each step, the peak memory,
+    then the step timed. Rank 0 writes every rank's results and its
+    parameters."""
+    import torch
+    import torch.distributed as dist
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.models import flp as flp_mod
+    from waldo_tpu_torch.models import lvd as lvd_mod
+    from waldo_tpu_torch.ops.kernels import reset_launches
+    from waldo_tpu_torch.parallel import mesh
+    from waldo_tpu_torch.train import Trainer
+
+    tf32_off()
+    gloo = backend == "gloo"
+    dev = torch.device("cuda", 0) if gloo else mesh.local_device("cuda")
+    mesh.init_distributed(dev, backend=backend)
+    grid_flags = SEQ_GRID if gloo else ["--mesh_shape", f"{mesh.world_size() // 2},2",
+                                        "--mesh_axes", "data,seq"]
+    sent = {"gradients": 0, "tokens": 0}
+    all_reduce = dist.all_reduce
+
+    def counting_all_reduce(t, *args, **kwargs):
+        sent["gradients" if t.dim() == 1 else "tokens"] += t.numel() * t.element_size()
+        return all_reduce(t, *args, **kwargs)
+
+    dist.all_reduce = counting_all_reduce
+    sites = []
+    for mod in (lvd_mod, flp_mod):
+        def logged(n, on, _orig=mod.token_shard):
+            ts = _orig(n, on)
+            sites.append((type(sys._getframe(1).f_locals["self"]).__name__, n, ts.world))
+            return ts
+
+        mod.token_shard = logged
+    res, params, lvd_dir = {}, {}, None
+    for net, mode, key in (SEQ_MODES if gloo else SEQ_MODES[:1]):
+        cfg = parse_cli(seq_flags(root, net, lvd_dir, *grid_flags,
+                                  batch=SEQ_BATCH if gloo else None))
+        tr = Trainer(cfg, device=dev)
+        st = tr.states[key]
+        kept = first_gradients(st)
+        grid = mesh.grid()
+        batch = tr._to_device(fixed_rows(cfg, mesh.BatchShard.of_rank(
+            cfg.batch_size_vid // grid.data_world)))
+        r = {"grid": [grid.data_rank, grid.data_world, grid.seq_rank, grid.seq_world],
+             "rank": mesh.rank(), "device": str(tr.device), "losses": [], "equal": [],
+             "launches": [], "bytes": [], "sites": []}
+        torch.cuda.reset_peak_memory_stats(dev)
+        for it in range(SEQ_STEPS):
+            reset_launches()
+            sites.clear()
+            sent.update(gradients=0, tokens=0)
+            metrics = tr.step(mode, batch, it)
+            torch.cuda.synchronize()
+            r["launches"].append(read_launches()[0])
+            r["bytes"].append(dict(sent))
+            r["sites"].append(sorted(set(sites)))
+            r["losses"].append(float(metrics["loss"]))
+            flat = torch.cat([p.detach().reshape(-1) for p in st.params])
+            ref = flat.clone()
+            dist.broadcast(ref, 0)
+            same = torch.tensor([float(torch.equal(flat, ref))], device=dev)
+            dist.all_reduce(same, op=dist.ReduceOp.MIN)
+            r["equal"].append(bool(same.item() == 1.0))
+        r["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        if mesh.is_main():
+            params[net] = [p.detach().cpu() for p in st.params]
+            params[f"{net}_names"] = [n for n, p in tr.syn.nets()[key].named_parameters()
+                                      if p.requires_grad]
+            params[f"{net}_grads"] = list(kept)
+        # the SEQ_STEPS checked steps warmed it up
+        r["step_ms"] = cuda_time(lambda: tr.step(mode, batch, 0), 2, warmup=0)
+        flat = torch.ones(sum(p.numel() for p in st.params) + 1, device=dev)
+        r["all_reduce_ms"] = cuda_time(lambda: all_reduce(flat), 5)
+        r["all_reduce_bytes"] = flat.numel() * flat.element_size()
+        res[net] = r
+        if net == "lvd":
+            # (b)'s teacher: a seeded random pose head (the zero one would
+            # hand FLP poses that no token of the stacks moves)
+            head = tr.syn.lvd.pose_estimator.head.weight
+            with torch.no_grad():
+                head.copy_(torch.randn(head.shape, generator=torch.Generator().manual_seed(3))
+                           * 0.02)
+            tr.save(0, name="latest")
+            lvd_dir = tr.cfg.checkpoint_path
+        del tr, st, batch, flat
+        torch.cuda.empty_cache()
+    every = [None] * mesh.world_size()
+    dist.all_gather_object(every, res)
+    if mesh.is_main():
+        torch.save({"backend": mesh.backend(), "world": mesh.world_size(), "ranks": every,
+                    "params": params, "lvd_dir": lvd_dir},
+                   os.path.join(out_dir, f"seq_{backend}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def first_gradients(st):
+    """Makes ``st`` (a NetState) keep, on the host, the reduced gradients of
+    its first step; returns the list they land in."""
+    kept, gradients = [], st.gradients
+
+    def keeping(loss):
+        grads, finite = gradients(loss)
+        if not kept:
+            kept.extend(g.detach().cpu() for g in grads)
+        return grads, finite
+
+    st.gradients = keeping
+    return kept
+
+
+def seq_world1(dev, root, net, lvd_dir, timed=True, batch=SEQ_BATCH):
+    """World 1 in this process at B = ``batch`` (None: the script's):
+    SEQ_STEPS steps of the ranks' trainer on the whole fixed batch, then
+    (``timed``) the step timed. Returns ((losses, parameters), the first
+    step's gradients, ms a step, peak GB)."""
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.parallel import BatchShard
+    from waldo_tpu_torch.train import Trainer
+
+    _, mode, key = next(m for m in SEQ_MODES if m[0] == net)
+    cfg = parse_cli(seq_flags(root, net, lvd_dir, "--datetime", f"seq{net}w1", batch=batch))
+    tr = Trainer(cfg, device=dev)
+    grads = first_gradients(tr.states[key])
+    batch = tr._to_device(fixed_rows(cfg, BatchShard.whole(cfg.batch_size_vid)))
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(tr.step(mode, batch, it)["loss"]) for it in range(SEQ_STEPS)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = [p.detach().cpu() for p in tr.states[key].params]
+    ms = cuda_time(lambda: tr.step(mode, batch, 0), 3, warmup=1) if timed else None
+    del tr, batch
+    torch.cuda.empty_cache()
+    return (losses, params), grads, ms, peak
+
+
+def gradients_close(got, want, names, label):
+    """The first step's reduced gradients against world 1's, per leaf: within
+    1e-4 x the leaf's largest plus 1e-7 x the largest of all leaves
+    (tests/test_torch_distributed.py's tolerance). Returns the worst leaf's
+    error over its largest."""
+    top = max(float(w.abs().max()) for w in want)
+    worst, bad = (0.0, None), []
+    for name, g, w in zip(names, got, want):
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        if scale > 0 and err / scale > worst[0]:
+            worst = (err / scale, name)
+        if err > 1e-4 * scale + 1e-7 * top:
+            bad.append((name, err, scale))
+    log(f"{label}: the first step's reduced gradients against world 1's: the worst leaf "
+        f"{worst[1]} at {worst[0]:.3g} of its largest (tol 1e-4, plus 1e-7 x {top:.3g})")
+    check(not bad, f"{label}: gradients off world 1's: {bad[:8]}")
+    return worst[0]
+
+
+def random_vgg19_convs(seed=0):
+    """Seeded random VGG19 weights, He-scaled (kh, kw, I, O) kernels and
+    small biases: the (kernel, bias) pairs VGGLoss takes."""
+    from waldo_tpu_torch.nn.perceptual import _VGG19_LAYOUT
+
+    rng, cin, convs = np.random.RandomState(seed), 3, []
+    for co in (c for c in _VGG19_LAYOUT if c != "P"):
+        convs.append(((rng.randn(3, 3, cin, co) * np.sqrt(2.0 / (9 * cin))).astype(np.float32),
+                      (rng.randn(co) * 0.01).astype(np.float32)))
+        cin = co
+    return convs
+
+
+def vgg_check(dev):
+    """The VGG19 loss on the card against the CPU (float32, 2 pairs of
+    32x64, the loss and its gradient in x; the CPU's native convolutions,
+    since its oneDNN backward is 2.4e-3 off float64), then timed on
+    VGG_PAIRS frame pairs of 512x1024 with seeded random weights: the
+    forward alone and the forward and backward, with the peak memory."""
+    import torch
+    from waldo_tpu_torch.nn.perceptual import VGGLoss
+
+    convs = random_vgg19_convs()
+    rng = np.random.RandomState(1)
+    a = rng.uniform(-1, 1, (2, 32, 64, 3)).astype(np.float32)
+    b = np.clip(a + rng.randn(*a.shape).astype(np.float32) * 0.3, -1, 1)
+    out = []
+    for d in (dev, "cpu"):
+        loss = VGGLoss(convs, device=d)
+        x = torch.from_numpy(a).to(d).requires_grad_()
+        with torch.backends.mkldnn.flags(enabled=False):
+            v = loss(x, torch.from_numpy(b).to(d))
+            v.backward()
+        out.append((float(v), x.grad.cpu()))
+    (got, g_got), (want, g_want) = out
+    loss_err = abs(got - want) / abs(want)
+    scale = float(g_want.abs().max())
+    grad_err = float((g_got - g_want).abs().max())
+    log(f"VGG19 loss, card vs CPU on 2 x 32x64 float32: loss {got:.6f} against {want:.6f} "
+        f"(relative {loss_err:.3g}, tol 1e-4); its gradient max|err| {grad_err:.3g} (tol 1e-3 x "
+        f"{scale:.3g})")
+    check(loss_err <= 1e-4 and grad_err <= 1e-3 * scale, "the VGG19 loss disagrees with the CPU")
+    loss = VGGLoss(convs, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.rand(VGG_PAIRS, 512, 1024, 3, generator=g, device=dev) * 2 - 1
+    y = (x + 0.3 * torch.randn(x.shape, generator=g, device=dev)).clamp(-1, 1)
+    with torch.no_grad():
+        fwd_ms = cuda_time(lambda: loss(x, y), 3, warmup=1)
+    xg = x.clone().requires_grad_()
+
+    def fwd_bwd():
+        xg.grad = None
+        loss(xg, y).backward()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(xg.grad).all()), "the VGG19 loss's gradient is not finite")
+    ms = cuda_time(fwd_bwd, 3, warmup=0)
+    log(f"VGG19 loss on {VGG_PAIRS} frame pairs of 512x1024: forward {fwd_ms:.2f} ms, forward "
+        f"and backward {ms:.2f} ms, peak memory {peak:.2f} GB")
+    del loss, x, y, xg
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "grad_err": grad_err, "grad_scale": scale,
+            "forward_ms": fwd_ms, "forward_backward_ms": ms, "peak_gb": peak}
+
+
+def mat_options_check(dev):
+    """A MAT Generator at 128 with a bias-free layer (its synthesis's
+    to_square built with use_bias=False) and the options (truncation_psi
+    0.5, truncation_cutoff 3, update_w_avg, return_stg1), on the card
+    against the CPU; bias_act launched once per MAT layer call, the
+    bias-free ones (no bias) included."""
+    import copy
+
+    import torch
+    from waldo_tpu_torch.models.mat import basic as mat_basic
+    from waldo_tpu_torch.models.mat import mat as mat_mat
+    from waldo_tpu_torch.nn import init_module
+    from waldo_tpu_torch.ops.bias_act import bias_act
+    from waldo_tpu_torch.ops.kernels import BIAS_ACT, reset_launches
+
+    net = mat_mat.Generator(img_resolution=128)
+    net.synthesis.to_square = mat_basic.FullyConnectedLayer(512, 16 * 16, activation="lrelu",
+                                                            use_bias=False)
+    init_module(net, torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        net.mapping.w_avg.copy_(torch.randn(net.mapping.w_avg.shape, generator=g) * 0.1)
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy((rng.rand(2, 128, 128, 3) * 2 - 1).astype(np.float32))
+    keep = torch.ones(2, 128, 128, 1)
+    keep[:, 30:90, 40:100] = 0.0
+    z = torch.from_numpy(rng.randn(2, 512).astype(np.float32))
+    calls = {"all": 0, "no_bias": 0}
+
+    def counting_bias_act(x, b=None, *args, **kwargs):
+        calls["all"] += 1
+        calls["no_bias"] += b is None
+        return bias_act(x, b, *args, **kwargs)
+
+    outs = []
+    for d in (dev, "cpu"):
+        m = copy.deepcopy(net).to(d).eval()
+        calls.update(all=0, no_bias=0)
+        reset_launches()
+        mat_basic.bias_act = counting_bias_act
+        try:
+            with torch.no_grad():
+                img, stg1 = m(x.to(d), keep.to(d), z.to(d), truncation_psi=0.5,
+                              noise_mode="const", truncation_cutoff=3, update_w_avg=True,
+                              return_stg1=True)
+        finally:
+            mat_basic.bias_act = bias_act
+        outs.append((img.cpu(), stg1.cpu(), m.mapping.w_avg.cpu(), dict(calls),
+                     BIAS_ACT.launches))
+    (img, stg1, w_avg, card_calls, launches), (img_w, stg1_w, w_avg_w, cpu_calls, _) = outs
+    errs = {k: (float((a - b).abs().max()), float(b.abs().max()))
+            for k, a, b in (("img", img, img_w), ("stg1", stg1, stg1_w), ("w_avg", w_avg, w_avg_w))}
+    moved = float((w_avg_w - net.mapping.w_avg).abs().max())
+    log(f"MAT Generator at 128 with the options and a bias-free layer, card vs CPU: "
+        + ", ".join(f"{k} max|err| {e:.3g} (tol 1e-3 x {s:.3g})" for k, (e, s) in errs.items())
+        + f"; w_avg moved {moved:.3g}; bias_act {launches} launches for {card_calls['all']} MAT "
+          f"layer calls, {card_calls['no_bias']} of them without a bias")
+    check(all(e <= 1e-3 * s for e, s in errs.values()) and moved > 0,
+          "the MAT options on the card disagree with the CPU")
+    check(launches == card_calls["all"] == cpu_calls["all"] and card_calls["no_bias"] == 1,
+          f"bias_act launched {launches} times for {card_calls} layer calls")
+    return {"errs": errs, "w_avg_moved": moved, "bias_act_launches": launches,
+            "layer_calls": card_calls}
+
+
+def seq_against_world1(dev, root, got, net, label, batch, spread=None):
+    """One net's run on the grid (``got``, seq_worker's file) against world
+    1 in this process at B = ``batch``: the ranks' grid coordinates, strict
+    launches and token shards a step, the first step's reduced gradients,
+    the losses and the parameters after SEQ_STEPS Adam steps, the latter
+    within twice the card's own spread (``spread``, else world 1 run twice
+    here). Returns compare_ranks' results with world 1's step and peak."""
+    ranks = [r[net] for r in got["ranks"]]
+    s_world = ranks[0]["grid"][3]
+    check([r["grid"] for r in ranks] == [[i // s_world, len(ranks) // s_world, i % s_world,
+                                          s_world] for i in range(len(ranks))],
+          f"{label}: the ranks' grid coordinates {[r['grid'] for r in ranks]}")
+    want = SEQ_LAUNCHES[net]
+    for r in ranks:
+        for it, launches in enumerate(r["launches"]):
+            check(all(v == want.get(k, 0) for k, v in launches.items()),
+                  f"{label}: rank {r['rank']} step {it} launched {launches}")
+        sites = r["sites"][0]
+        check(all(w == (1 if n % s_world else s_world) for _, n, w in sites)
+              and {"PoseEstimator", "LayerEstimator"} <= {m for m, _, _ in sites}
+              and (net == "lvd") == ("PoseEncoder" not in {m for m, _, _ in sites}),
+              f"{label}: token shards {sites}")
+    t0 = time.perf_counter()
+    w, w_grads, w_ms, w_peak = seq_world1(dev, root, net, got["lvd_dir"], batch=batch)
+    log(f"{label} world 1 in this process: {time.perf_counter() - t0:.1f} s, losses "
+        f"{['%.6f' % v for v in w[0]]}, a step {w_ms:.2f} ms, peak {w_peak:.2f} GB")
+    names = got["params"][f"{net}_names"]
+    grad_err = gradients_close(got["params"][f"{net}_grads"], w_grads, names, label)
+    if spread is None:
+        # world 1 again: the card's own spread after SEQ_STEPS Adam steps (the
+        # backward kernels' and cuDNN's atomics sum in no fixed order)
+        w2, *_ = seq_world1(dev, root, net, got["lvd_dir"], timed=False, batch=batch)
+        spread = compare_ranks({"equal": [True] * SEQ_STEPS, "params": w2[1], "names": names,
+                                "ranks": [{"rank": 0, "device": str(dev), "losses": w2[0],
+                                           "peak_gb": w_peak, "step_ms": w_ms,
+                                           "all_reduce_ms": 0.0}],
+                                "all_reduce_bytes": 0}, w, f"{label} world 1 twice",
+                               steps=SEQ_STEPS, strict=False)
+    r0 = ranks[0]
+    log(f"{label} token shards a step (stack, tokens, S): {r0['sites'][0]}; bytes through the "
+        f"collectives a step and rank: {r0['bytes'][-1]}; launches a step {r0['launches'][-1]}")
+    cmp = compare_ranks({"equal": [all(e) for e in zip(*[r["equal"] for r in ranks])],
+                         "ranks": ranks, "params": got["params"][net], "names": names,
+                         "all_reduce_bytes": r0["all_reduce_bytes"]},
+                        w, f"{label} grid", steps=SEQ_STEPS, strict=False)
+    log(f"{label}: a step {[round(r['step_ms'], 2) for r in ranks]} ms on the ranks against "
+        f"world 1's {w_ms:.2f} ms; peak {[round(r['peak_gb'], 2) for r in ranks]} GB a rank "
+        f"against world 1's {w_peak:.2f} GB")
+    check(max(cmp["loss_rel_err"]) <= 2e-4 and cmp["param_max_err"] <= 2e-4 * SEQ_STEPS
+          and cmp["param_share_over_2e6"] <= max(1e-3, 2 * spread["param_share_over_2e6"]),
+          f"{label}: the grid is further from world 1 than the card's own spread")
+    return dict(cmp, world1_ms=w_ms, world1_peak_gb=w_peak, grad_err=grad_err,
+                world1_spread=spread)
+
+
+def phase_seq(dev, card_name, root):
+    """Sequence sharding over a (data, seq) process grid: (a) and (b) two
+    gloo ranks of a 1 x 2 grid on card 0 (seq_worker) against world 1 in
+    this process at B = SEQ_BATCH; (c) NCCL over several cards where there
+    are several; (d) the VGG19 loss; (e) MAT's options."""
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+
+    log("== 14. sequence sharding: a 1 x 2 (data, seq) grid of gloo ranks (train_lvd.sh, "
+        "train_flp.sh), the VGG19 loss, MAT's options")
+    log(f"card: {card_name}")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = os.path.join(root, "out")
+    os.makedirs(out_dir)
+    here = os.path.abspath(__file__)
+    res = {}
+    secs, out = torchrun(2, [here, "--dist-worker", "seq", "--dist-root", root],
+                         "torchrun seq ranks")
+    cfg_line = [ln for ln in out.splitlines() if ln.startswith("[dist]")]
+    got = torch.load(os.path.join(out_dir, "seq_gloo.pt"), weights_only=False)
+    log(f"two gloo ranks on card 0 ({secs:.1f} s): backend {got['backend']}, world "
+        f"{got['world']}; {cfg_line[:1]}")
+    check(got["backend"] == "gloo" and got["world"] == 2, "the pair is not two gloo ranks")
+    for net, label in (("lvd", "(a) LVD"), ("flp", "(b) FLP")):
+        res[net] = seq_against_world1(dev, root, got, net, label, SEQ_BATCH)
+    res["seconds_ranks"] = secs
+    n = torch.cuda.device_count()
+    batch = parse_cli(seq_flags(root, "lvd", batch=None)).batch_size_vid
+    if n > 1 and batch % (n // 2) == 0:
+        secs, out = torchrun(2 * (n // 2), [here, "--dist-worker", "seq-nccl", "--dist-root",
+                                            root], f"torchrun NCCL seq grid over {n} cards")
+        got = torch.load(os.path.join(out_dir, "seq_nccl.pt"), weights_only=False)
+        log(f"(c) NCCL over {got['world']} cards ({secs:.1f} s), a {got['world'] // 2} x 2 grid "
+            f"at B = {batch}")
+        res["nccl_cards"] = seq_against_world1(dev, root, got, "lvd", "(c) LVD over cards", None,
+                                               spread=res["lvd"]["world1_spread"])
+        res["nccl_cards"]["seconds"] = secs
+    else:
+        log(f"(c) NCCL over several cards: not run (this machine has {n} card"
+            f"{'s' if n > 1 else ''}; the grid needs two or more, and its data axis must "
+            f"divide B = {batch})")
+    res["vgg"] = vgg_check(dev)
+    res["mat_options"] = mat_options_check(dev)
+    shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 took {res['seconds']:.1f} s")
+    return res
+
+
 def gan_teacher(dev, root):
     """For --gan: an LVD run's "latest" slot of seeded weights at
     train_lvd.sh's flags, in place of phase 7's run. Returns its dir."""
@@ -4504,9 +4971,15 @@ def main(argv=None):
     ap.add_argument("--gan", action="store_true",
                     help="only run phases 1, 2 and 13 (WIF adversarial training), the teacher a "
                          "seeded LVD slot; the last line is its JSON summary")
-    ap.add_argument("--dist-worker", choices=["nccl", "gloo", "nccl-cards"], default=None,
-                    help="run as one rank of phase 12 under torchrun (the phase starts them)")
-    ap.add_argument("--dist-root", default=None, help="phase 12's directory, for its ranks")
+    ap.add_argument("--seq", action="store_true",
+                    help="only run phases 1, 2 and 14 (sequence sharding, the VGG19 loss, "
+                         "MAT's options); the last line is its JSON summary")
+    ap.add_argument("--dist-worker", choices=["nccl", "gloo", "nccl-cards", "seq", "seq-nccl"],
+                    default=None,
+                    help="run as one rank of phase 12 or 14 under torchrun (the phase starts "
+                         "them)")
+    ap.add_argument("--dist-root", default=None, help="phase 12's or 14's directory, for its "
+                                                      "ranks")
     args = ap.parse_args(argv)
 
     import torch
@@ -4519,6 +4992,10 @@ def main(argv=None):
 
     if args.dist_worker == "nccl":
         dist_worker_nccl(os.path.join(args.dist_root, "out"), args.dist_root)
+        return 0
+    if args.dist_worker in ("seq", "seq-nccl"):
+        seq_worker(os.path.join(args.dist_root, "out"), args.dist_root,
+                   "gloo" if args.dist_worker == "seq" else "nccl")
         return 0
     if args.dist_worker:
         dist_worker_ranks(os.path.join(args.dist_root, "out"), args.dist_root,
@@ -4543,6 +5020,13 @@ def main(argv=None):
         finally:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"dist": jsonable(res)}), flush=True)
+        return 0
+    if args.seq:
+        try:
+            res = phase_seq(dev, card_line, os.path.join(root, "seq"))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"seq": jsonable(res)}), flush=True)
         return 0
     if args.gan:
         shutil.rmtree(root, ignore_errors=True)
@@ -4580,6 +5064,7 @@ def main(argv=None):
         dist_res = phase_dist(dev, os.path.join(root, "dist"))
         gan_res, gan_rows = phase_gan(dev, name, root, lvd_dir, args.profile)
         rows += gan_rows
+        seq_res = phase_seq(dev, card_line, os.path.join(root, "seq"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
@@ -4592,6 +5077,7 @@ def main(argv=None):
                                 "main": main_res, "mat": mat_res, "train": train_res,
                                 "flp": flp_res, "wif": wif_res, "eval": eval_res,
                                 "convert": convert_res, "dist": dist_res, "gan": gan_res,
+                                "seq": seq_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

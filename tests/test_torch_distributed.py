@@ -693,20 +693,34 @@ def test_init_distributed_without_world_size_is_world_one(monkeypatch):
 
 
 @pytest.mark.parametrize("shape,axes,raises", [
-    ([1, 8], ["data", "model"], False), (None, ["data"], False), ([2, 1], ["data", "seq"], False),
-    ([1, 2], ["data", "seq"], True), (None, ["seq"], True), (None, ["data", "seq"], False)])
+    ([1, 8], ["data", "model"], False), (None, ["data"], False), ([1, 2], ["data", "seq"], False),
+    ([2, 1], ["seq", "data"], True), (None, ["seq"], True), ([2, 2], ["data", "seq"], False)])
 def test_seq_axis_is_refused(tmp_path, shape, axes, raises):
-    """A "seq" axis of size > 1 raises in the config check and before the
-    trainer builds anything; the world size comes from the launcher."""
+    """The process grid each mesh_shape / mesh_axes gives: rank r at
+    np.unravel_index(r, shape), the JAX package's device order, so on
+    ("data", "seq") r = d S + s; mesh_shape None puts every rank on the first
+    axis. A grid led by "seq" is refused (the batch splits over the first
+    axis), in the config check and before the trainer builds anything, and
+    so is a shape whose product is not the launcher's world size."""
     from waldo_tpu_torch.config import Config, check_mesh
+    from waldo_tpu_torch.parallel import grid_coordinates
     from waldo_tpu_torch.train import Trainer
 
     cfg = Config(mesh_shape=shape, mesh_axes=axes, save_path=str(tmp_path))
+    world = int(np.prod(shape)) if shape is not None else 4
     if raises:
-        with pytest.raises(NotImplementedError, match="queue 1 item 15"):
-            check_mesh(cfg)
-        with pytest.raises(NotImplementedError, match="sharding"):
+        with pytest.raises(ValueError, match="token axis"):
+            check_mesh(cfg, world)
+        with pytest.raises(ValueError, match="token axis"):
             Trainer(cfg, device="cpu")
         assert not os.listdir(tmp_path)
-    else:
-        check_mesh(cfg)
+        return
+    assert check_mesh(cfg, world) == (shape or [world] + [1] * (len(axes) - 1))
+    if shape is not None:
+        with pytest.raises(ValueError, match="launcher started"):
+            check_mesh(cfg, world + 1)
+    s = shape[axes.index("seq")] if "seq" in axes else 1
+    d = world // (shape[1] if shape is not None and len(shape) > 1 else 1)
+    for r in range(world):
+        want = (r // (world // d), d, r % s, s)
+        assert grid_coordinates(shape, axes, world, r) == want, (r, want)

@@ -64,6 +64,14 @@ def eval_cfg(data_root, save_path, datetime):
     return cfg
 
 
+def port_cfg(cfg):
+    """The port's copy of a JAX eval config: its mesh is the launcher's
+    processes (one here), not the JAX evaluator's 1 x 8 CPU devices."""
+    tcfg = from_dict(jconfig.to_dict(cfg))
+    tcfg.mesh_shape, tcfg.mesh_axes = None, ["data"]
+    return tcfg
+
+
 def capturing(module, into):
     """``module.save_video_frames`` recording each video by (folder, file)."""
     orig = module.save_video_frames
@@ -89,7 +97,7 @@ def runs(tmp_path_factory):
         jev.params = replicate(jax.tree.map(jnp.asarray, params), jev.mesh)
         jmetrics = jev.run(dump=True)
 
-    tcfg = from_dict(jconfig.to_dict(cfg))
+    tcfg = port_cfg(cfg)
     tcfg.datetime = "torch"
     for net, field in NETS.items():
         run = str(root / "checkpoints" / f"{net}_run")
@@ -177,7 +185,7 @@ def test_evaluator_restores_every_slot_equal(runs):
 
 def test_evaluator_missing_slot_raises(runs, tmp_path):
     cfg = eval_cfg(runs["data_root"], str(tmp_path), "x")
-    tcfg = from_dict(jconfig.to_dict(cfg))
+    tcfg = port_cfg(cfg)
     tcfg.model.pg_load_path = str(tmp_path / "no_run")
     with pytest.raises(FileNotFoundError):
         Evaluator(tcfg, device="cpu")

@@ -12,7 +12,9 @@ predicted videos under results/<signature>/ for the metrics CLI
 mean L1, PSNR and SSIM. ``--device cpu`` runs it on the CPU. Data-parallel
 over N cards of one host, one process per card (NCCL), each predicting and
 dumping its rows of every global batch of ``--batch_size_vid`` clips (N
-must divide it), the metrics averaged over the ranks (train/evaluator.py):
+must divide it), the metrics averaged over the ranks (train/evaluator.py;
+on a ``--mesh_shape D,S --mesh_axes data,seq`` grid the batch splits over D
+and the S ranks of a data coordinate predict its rows alike):
 
   python -m torch.distributed.run --standalone --nproc_per_node N \
       -m waldo_tpu_torch.cli.test <the same flags>

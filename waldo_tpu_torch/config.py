@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import glob
 import json
+import math
 import os
 import sys
 import time
@@ -306,8 +307,8 @@ class Config:
     cont_train: bool = False
 
     # parallelism fields, kept for config round-trips with the JAX package:
-    # the port's world size comes from the launcher (parallel/mesh.py), and
-    # check_mesh refuses a "seq" axis
+    # the port's world size comes from the launcher, and the shape's product
+    # must equal it (check_mesh; parallel/mesh.py)
     mesh_shape: Optional[List[int]] = None  # default: all devices on "data"
     mesh_axes: List[str] = field(default_factory=lambda: ["data"])
     compute_dtype: str = "float32"  # or "bfloat16"
@@ -352,22 +353,37 @@ class Config:
         return self
 
 
-def check_mesh(cfg: Config) -> None:
-    """The port parallelizes over data only, over the launcher's processes:
-    a "seq" axis (the JAX package's sequence sharding) of size > 1 raises.
-    ``mesh_shape`` None gives the first axis every device and the others
-    size 1, as in the JAX package. Other axes ("model", which no JAX code
-    reads) are accepted."""
-    axes = list(cfg.mesh_axes)
-    if "seq" not in axes:
-        return
-    i = axes.index("seq")
-    size = cfg.mesh_shape[i] if cfg.mesh_shape is not None else (None if i == 0 else 1)
-    if size != 1:
-        raise NotImplementedError(
-            "a 'seq' mesh axis (sequence sharding, waldo_tpu/parallel/sharding.py) is not "
-            "ported yet (ROADMAP.md queue 1 item 15); the port runs data parallelism over "
-            "torchrun's processes")
+def check_mesh_shape(mesh_shape, mesh_axes, world: int) -> List[int]:
+    """The process grid's shape: ``mesh_shape``, or, where it is None, every
+    rank on the first axis and the others of size 1, as the JAX package's
+    ``make_mesh`` lays devices out. Raises ValueError where the first axis
+    is "seq" (the batch splits over the first axis, and would split over
+    the token axis), where an axis is named twice or the shape has another
+    rank than the axes, and where the shape's product is not ``world``,
+    the launcher's world size."""
+    axes = list(mesh_axes)
+    if not axes or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh_axes {axes} must name each axis once")
+    if axes[0] == "seq":
+        raise ValueError(
+            f"mesh_axes {axes} lead with 'seq': the batch is split over the first axis, so it "
+            "would be split over the token axis; put 'data' first, as ('data', 'seq')")
+    shape = [world] + [1] * (len(axes) - 1) if mesh_shape is None else [int(n) for n in mesh_shape]
+    if len(shape) != len(axes) or min(shape) < 1:
+        raise ValueError(f"mesh_shape {shape} does not fit mesh_axes {axes}")
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh_shape {shape} holds {math.prod(shape)} ranks, but the "
+                         f"launcher started {world}")
+    return shape
+
+
+def check_mesh(cfg: Config, world: int = 1) -> List[int]:
+    """The config's process grid at the launcher's world size (1 without
+    torchrun), checked as ``check_mesh_shape`` checks it: ("data", "seq")
+    splits the batch over "data" and the attention stacks' tokens over
+    "seq" (parallel/sharding.py); another axis ("model", which no code
+    reads) holds replicas."""
+    return check_mesh_shape(cfg.mesh_shape, cfg.mesh_axes, world)
 
 
 _DATASET_DEFAULTS = {
@@ -534,6 +550,10 @@ def parse_cli(argv: Optional[List[str]] = None, base: Optional[Config] = None) -
             if not hasattr(target, parts[-1]):
                 raise KeyError(f"unknown config key: {key}")
         attr = parts[-1]
+        if attr == "mesh_shape":  # a list of ints in a field whose default is None
+            setattr(target, attr, None if raw.lower() in ("none", "null") else
+                    [int(p) for p in raw.replace(",", " ").split()])
+            continue
         setattr(target, attr, _coerce(getattr(target, attr), raw))
     return cfg.finalize()
 

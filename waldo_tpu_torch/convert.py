@@ -29,13 +29,16 @@ checkpoints use it).
 module)`` load the JAX package's FID and FVD extractors (eval/inception.py,
 eval/i3d.py), whose leaves "a/b/conv/kernel" (kh,kw,I,O) and
 "a/b/conv3d/kernel" (kt,kh,kw,I,O) fill the port's "a.b.conv.weight"
-(O,I,kh,kw) and "a.b.conv3d.weight" (O,I,kt,kh,kw), biases as they are.
+(O,I,kh,kw) and "a.b.conv3d.weight" (O,I,kt,kh,kw), biases as they are;
+``vgg19_from_jax(tree_np, module)`` the perceptual loss's VGG19Features
+(nn/perceptual.py) the same way, "conv{i}/kernel" to "conv{i}.weight".
 
 ``mat_from_jax(variables_np, module)`` does the same for the MAT
 ``Generator`` (models/mat) or any of its modules, which carry the flax
 names: the leaf "a/b/weight" of the ``params`` collection fills the port's
 "a.b.weight" (dense (I, O) and conv (kh, kw, I, O) kernels in the layouts
-above), the ``noise_const`` leaf "a/b/n" fills the buffer "a.b.noise_const"
+above; a layer built with ``use_bias=False`` has no "bias" on either side),
+the ``noise_const`` leaf "a/b/n" fills the buffer "a.b.noise_const"
 and the ``w_stats`` leaf "mapping/w_avg" the buffer "mapping.w_avg".
 """
 from __future__ import annotations
@@ -360,6 +363,13 @@ def _conv_from_jax(tree_np, module: torch.nn.Module, what: str) -> None:
     if unfilled:
         raise ValueError(f"port {what} has entries no leaf fills: {unfilled[:8]}")
     module.load_state_dict(new, strict=True)
+
+
+def vgg19_from_jax(tree_np, module: torch.nn.Module) -> None:
+    """Load the JAX package's VGG19Features tree (``conv{i}`` kernels and
+    biases, with or without its "params" collection) into the port's
+    ``nn.perceptual.VGG19Features``, strictly."""
+    _conv_from_jax(tree_np, module, "VGG19")
 
 
 def inception_from_jax(tree_np, module: torch.nn.Module) -> None:

@@ -4,9 +4,10 @@ that makes each batch's clips on a pool of ``num_workers`` threads and keeps
 up to ``prefetch`` batches ready in a bounded queue.
 
 ``batch_size`` is the global batch. Under data parallelism over ``world_size``
-processes (by default the process group's, parallel/mesh.py), rank r holds
-rows [r B/W, (r+1) B/W) of each global batch; ``len`` is the number of
-global batches, as at world 1.
+parts (by default the process grid's data axis, parallel/mesh.py), part r
+holds rows [r B/W, (r+1) B/W) of each global batch; ``len`` is the number of
+global batches, as at world 1. On a (data, seq) grid the seq ranks of a
+data coordinate hold its rows alike.
 
 A batch does not depend on ``num_workers`` or the world size. Every
 dataset splits its draws from a shared random stream (the synthetic
@@ -51,8 +52,8 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 2, drop_last: bool = True,
                  world_size: Optional[int] = None, rank: Optional[int] = None):
-        self.world_size = mesh.world_size() if world_size is None else world_size
-        self.rank = mesh.rank() if rank is None else rank
+        self.world_size = mesh.data_world() if world_size is None else world_size
+        self.rank = mesh.data_rank() if rank is None else rank
         if batch_size % self.world_size:
             raise ValueError(f"a global batch of {batch_size} does not split over "
                              f"{self.world_size} processes")

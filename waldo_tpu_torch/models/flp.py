@@ -13,6 +13,10 @@ initial tokens; ``pg_inject_noise``: token noise in the decoder's self
 attention), drawn from the ``noise`` stream the caller hands the forward (a
 ``parallel.RowStream``, which draws at the global batch's shape and keeps
 the rank's rows); inference (no stream) is deterministic.
+
+With ``shard_seq`` set (``Synthesizer.shard_sequence``) the pose encoder's
+tokens are split over the seq ranks where S divides their count, as the JAX
+package shards them (parallel/sharding.py), and gathered after its stack.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.nn as nn
 from ..nn import Block, CustomNorm, Dense, MultiBlocks
 from ..nn.init import trunc_normal_
 from ..ops import get_grid
+from ..parallel.sharding import token_shard
 
 
 class LatentCompressor(nn.Module):
@@ -63,6 +68,7 @@ class PoseEncoder(nn.Module):
         self.to_bg_emb = Dense(l * 2, c, dtype=dtype)
         self.blocks = MultiBlocks(m.pg_enc_depth, c, m.num_heads, "full", m.norm_layer,
                                   dtype=dtype)
+        self.shard_seq = False  # split the stack's tokens over the seq ranks
         self.norm = CustomNorm(m.norm_layer, c)
 
     def init_parameters(self, generator):
@@ -89,7 +95,9 @@ class PoseEncoder(nn.Module):
         x = x + self.time_embed[:, :tt] + self.lay_embed
 
         key_mask = ctx_mask.repeat_interleave(no + 1, dim=1)  # B tt*(No+1)
-        x = self.blocks(x.reshape(b, tt * (no + 1), c), key_mask=key_mask)
+        tokens = token_shard(tt * (no + 1), self.shard_seq)
+        x = tokens.shard(x.reshape(b, tt * (no + 1), c))
+        x = tokens.gather(self.blocks(x, key_mask=key_mask, tokens=tokens))
         x = self.norm(x).reshape(b, tt, no + 1, c)
         x_init = (self.time_embed[:, :tt] + self.lay_embed).expand(b, tt, no + 1, c)
         if m.pg_embed_noise and noise is not None:

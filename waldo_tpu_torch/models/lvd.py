@@ -10,6 +10,11 @@ Channel-last layouts:
   x_obj         (B, No, Lo, C)         x_bg           (B, L, C)
   obj_pose      (B, T, No, Lo, 2)      bg_pose        (B, T, 1, L, 2)
   occ_score     (B, T, No)             obj_alpha      (B, No, Ho, Wo, 1)
+
+Sequence sharding (parallel/sharding.py) where the JAX package shards: with
+``shard_seq`` set (``Synthesizer.shard_sequence``), the pose estimator's
+token stream and the layer estimator's context tokens are split over the
+seq ranks; the pose estimator gathers its stream after its stack.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn as nn
 from ..nn import ConvPatchProj, CustomNorm, Dense, MultiBlocks
 from ..nn.init import trunc_normal_
 from ..ops import get_circle, get_grid, resize
+from ..parallel.sharding import token_shard
 
 
 def get_num_channels(dtype: str, num_lyt: int) -> int:
@@ -155,6 +161,7 @@ class PoseEstimator(_Embeddings):
         self.obj_embed = nn.Parameter(torch.empty(1, 1, lo, c))
         self.pos_embed = nn.Parameter(torch.empty(1, 1, l, c))
         self.blocks = MultiBlocks(m.pe_depth, c, m.num_heads, "full", m.norm_layer, dtype=dtype)
+        self.shard_seq = False  # split the stack's tokens over the seq ranks
         self.norm = CustomNorm(m.norm_layer, c)
         out = 8 + (1 if m.bound_scale else 0) + 1
         self.head = Dense(c, out, dtype=dtype, zero_init=m.pe_estimator_init_mode == "zero")
@@ -191,7 +198,9 @@ class PoseEstimator(_Embeddings):
         else:
             x = torch.cat([xo, x], dim=2)
 
-        x = self.blocks(x.reshape(b * t, -1, c))
+        x = x.reshape(b * t, -1, c)
+        tokens = token_shard(x.shape[1], self.shard_seq)
+        x = tokens.gather(self.blocks(tokens.shard(x), tokens=tokens))
         keep = l + no * lo if m.has_bg else no * lo
         x = x[:, :keep]
         x_for_head = x[:, l:] if (m.has_bg and m.fix_bg) else x
@@ -310,6 +319,7 @@ class LayerEstimator(_Embeddings):
         self._embeddings += ("time_embed", "pos_embed")
         self.norm = CustomNorm(m.norm_layer, c)
         self.blocks = MultiBlocks(m.oe_depth, c, m.num_heads, "obj", m.norm_layer, dtype=dtype)
+        self.shard_seq = False  # split the context tokens over the seq ranks
         if m.pred_cls:
             self.cls_norm = CustomNorm(m.norm_layer, c)
             self.cls_head = Dense(c, cfg.data.num_lyt, dtype=dtype)
@@ -328,7 +338,9 @@ class LayerEstimator(_Embeddings):
             x_bg = self.pos_embed.expand(b, 1, l, c).reshape(b, l, c)
             x_obj = torch.cat([x_bg, x_obj], dim=1)
         x = self.norm(x.reshape(b, t * l, c))
-        x_obj = self.blocks(x_obj, x_ctx=x)
+        # the context tokens are sharded, the object queries replicated
+        tokens = token_shard(t * l, self.shard_seq)
+        x_obj = self.blocks(x_obj, x_ctx=tokens.shard(x), tokens=tokens)
         x_bg = x_obj[:, :l] if m.has_bg else None
         x_obj = x_obj[:, -no * lo:]
         cls = None

@@ -35,13 +35,14 @@ def _filter_buffer(module: nn.Module, taps) -> None:
 class FullyConnectedLayer(nn.Module):
     """Equalized-lr dense: unit-normal init over ``lr_multiplier``, run-time
     gain lr_multiplier / sqrt(in), bias scaled by lr_multiplier, fused
-    activation. ``weight`` is (out, in)."""
+    activation. ``weight`` is (out, in). With ``use_bias=False`` there is no
+    ``bias`` and the fused activation runs without one."""
 
     def __init__(self, in_features, features, activation="linear", lr_multiplier=1.0,
-                 bias_init=0.0):
+                 bias_init=0.0, use_bias=True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.activation = activation
         self.lr_multiplier = lr_multiplier
         self.bias_init = bias_init
@@ -50,11 +51,13 @@ class FullyConnectedLayer(nn.Module):
     @torch.no_grad()
     def init_parameters(self, generator):
         self.weight.normal_(generator=generator).div_(self.lr_multiplier)
-        self.bias.fill_(self.bias_init)
+        if self.bias is not None:
+            self.bias.fill_(self.bias_init)
 
     def forward(self, x):
         y = x @ (self.weight * self.weight_gain).t()
-        return bias_act(y, self.bias * self.lr_multiplier, act=self.activation)
+        b = self.bias * self.lr_multiplier if self.bias is not None else None
+        return bias_act(y, b, act=self.activation)
 
 
 def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1):
@@ -86,14 +89,15 @@ def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1):
 
 class Conv2dLayer(nn.Module):
     """Equalized-lr conv with resampling and fused bias/act. ``weight`` is
-    (out, in, k, k)."""
+    (out, in, k, k). With ``use_bias=False`` there is no ``bias``."""
 
     def __init__(self, in_channels, features, kernel_size, activation="linear", up=1, down=1,
-                 resample_filter=(1, 3, 3, 1), conv_clamp: Optional[float] = None):
+                 resample_filter=(1, 3, 3, 1), conv_clamp: Optional[float] = None,
+                 use_bias=True):
         super().__init__()
         k = kernel_size
         self.weight = nn.Parameter(torch.empty(features, in_channels, k, k))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.activation, self.up, self.down, self.conv_clamp = activation, up, down, conv_clamp
         self.padding = k // 2
         self.weight_gain = 1.0 / math.sqrt(in_channels * k * k)
@@ -102,7 +106,8 @@ class Conv2dLayer(nn.Module):
     @torch.no_grad()
     def init_parameters(self, generator):
         self.weight.normal_(generator=generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x, gain=1.0):
         y = conv2d_resample(x, self.weight * self.weight_gain, f=self.resample_filter,
@@ -215,11 +220,15 @@ class ToRGB(nn.Module):
 
 class MappingNet(nn.Module):
     """z -> w: 2nd-moment normalization, ``num_layers`` lrelu FCs, broadcast
-    to ``num_ws`` and truncation toward the ``w_avg`` buffer."""
+    to ``num_ws`` and truncation toward the ``w_avg`` buffer, of the first
+    ``truncation_cutoff`` ws where it is set. ``update_w_avg`` first moves
+    ``w_avg`` toward the batch's mean w, in place (the JAX package's update
+    of its mutable "w_stats"): w_avg = mean + beta (w_avg - mean)."""
 
-    def __init__(self, z_dim, w_dim, num_ws, num_layers=8, lr_multiplier=0.01):
+    def __init__(self, z_dim, w_dim, num_ws, num_layers=8, lr_multiplier=0.01,
+                 w_avg_beta=0.995):
         super().__init__()
-        self.num_ws, self.num_layers = num_ws, num_layers
+        self.num_ws, self.num_layers, self.w_avg_beta = num_ws, num_layers, w_avg_beta
         for i in range(num_layers):
             self.add_module(f"fc{i}", FullyConnectedLayer(
                 z_dim if i == 0 else w_dim, w_dim, activation="lrelu",
@@ -230,11 +239,19 @@ class MappingNet(nn.Module):
     def init_parameters(self, generator):
         self.w_avg.zero_()
 
-    def forward(self, z, truncation_psi=1.0):
+    def forward(self, z, truncation_psi=1.0, truncation_cutoff=None, update_w_avg=False):
         x = normalize_2nd_moment(z.float())
         for i in range(self.num_layers):
             x = getattr(self, f"fc{i}")(x)
+        if update_w_avg:
+            with torch.no_grad():
+                mean = x.detach().mean(dim=0)
+                self.w_avg.copy_(mean + self.w_avg_beta * (self.w_avg - mean))
         ws = x[:, None].expand(-1, self.num_ws, -1)
         if truncation_psi != 1.0:
-            ws = self.w_avg + truncation_psi * (ws - self.w_avg)
+            if truncation_cutoff is None:
+                ws = self.w_avg + truncation_psi * (ws - self.w_avg)
+            else:
+                trunc = self.w_avg + truncation_psi * (ws[:, :truncation_cutoff] - self.w_avg)
+                ws = torch.cat([trunc, ws[:, truncation_cutoff:]], dim=1)
         return ws

@@ -18,7 +18,9 @@ Two halves:
    and modulated conv (1,O,I,kh,kw) -> (kh,kw,I,O), dense (O,I) -> (I,O);
    the ``noise_const`` buffers -> the "noise_const" collection,
    ``mapping.w_avg`` -> "w_stats". ``convert_mat_weights`` writes the
-   ``.npz`` the JAX converter writes.
+   ``.npz`` the JAX converter writes. A layer built with ``use_bias=False``
+   has no bias in the state dict, in the template (``module_template``) or
+   in the tree.
 """
 from __future__ import annotations
 
@@ -188,18 +190,17 @@ def convert_state_dict(sd: Dict[str, np.ndarray],
     return tree
 
 
-def generator_template(img_resolution: int = 512) -> Dict[str, Any]:
-    """The flax variables' paths and shapes of a MAT Generator at
-    ``img_resolution``, from the port's module (which carries the flax
-    names), as nested dicts of zero-strided arrays."""
-    from .mat import Generator
-
+def module_template(module) -> Dict[str, Any]:
+    """The flax variables' paths and shapes of a port MAT module (which
+    carries the flax names), as nested dicts of zero-strided arrays: a layer
+    built with ``use_bias=False`` has no "bias" leaf, as in the reference's
+    state dict."""
     tree: Dict[str, Any] = {}
-    for key, t in Generator(img_resolution=img_resolution).state_dict().items():
+    for key, t in module.state_dict().items():
         parts = key.split(".")
         if parts[-1] == "resample_filter":
             continue
-        if key == "mapping.w_avg":
+        if key.endswith("mapping.w_avg") or key == "w_avg":
             col, path = "w_stats", parts
         elif parts[-1] == "noise_const":
             col, path = "noise_const", parts[:-1] + ["n"]
@@ -215,6 +216,13 @@ def generator_template(img_resolution: int = 512) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.broadcast_to(np.float32(0), shape)
     return tree
+
+
+def generator_template(img_resolution: int = 512) -> Dict[str, Any]:
+    """``module_template`` of a MAT Generator at ``img_resolution``."""
+    from .mat import Generator
+
+    return module_template(Generator(img_resolution=img_resolution))
 
 
 def convert_mat_weights(pkl_path: str, out_path: str,

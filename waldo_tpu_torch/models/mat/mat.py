@@ -488,7 +488,10 @@ class SynthesisNet(nn.Module):
         self.dec = Decoder(self.res_log2, w_dim + nf(2) * 2, use_noise, demodulate,
                            img_channels)
 
-    def forward(self, images_in, masks_in, ws, noise_mode="random", generator=None):
+    def forward(self, images_in, masks_in, ws, noise_mode="random", generator=None,
+                return_stg1=False):
+        """The inpainted images; with ``return_stg1`` also the first
+        stage's."""
         out_stg1 = self.first_stage(images_in, masks_in, ws, noise_mode, generator)
         x = images_in * masks_in + out_stg1 * (1 - masks_in)
         x = torch.cat([masks_in - 0.5, x, images_in * masks_in], dim=-1)
@@ -503,12 +506,17 @@ class SynthesisNet(nn.Module):
 
         gs = self.to_style(fea_16)
         img = self.dec(fea_16, ws, gs, e_features, noise_mode, generator)
-        return img * (1 - masks_in) + images_in * masks_in
+        img = img * (1 - masks_in) + images_in * masks_in
+        if return_stg1:
+            return img, out_stg1
+        return img
 
 
 class Generator(nn.Module):
     """Mapping + synthesis. images_in (B, R, R, 3) in [-1, 1], masks_in
-    (B, R, R, 1) with 1 = keep, z (B, z_dim) -> (B, R, R, 3)."""
+    (B, R, R, 1) with 1 = keep, z (B, z_dim) -> (B, R, R, 3), and the first
+    stage's (B, R, R, 3) with ``return_stg1``. ``truncation_cutoff`` and
+    ``update_w_avg`` go to the mapping (MappingNet)."""
 
     def __init__(self, z_dim=512, w_dim=512, img_resolution=512, img_channels=3):
         super().__init__()
@@ -518,6 +526,8 @@ class Generator(nn.Module):
         self.synthesis = SynthesisNet(w_dim, img_resolution, img_channels)
 
     def forward(self, images_in, masks_in, z, truncation_psi=1.0, noise_mode="random",
-                generator=None):
-        ws = self.mapping(z, truncation_psi=truncation_psi)
-        return self.synthesis(images_in, masks_in, ws, noise_mode, generator=generator)
+                generator=None, truncation_cutoff=None, return_stg1=False, update_w_avg=False):
+        ws = self.mapping(z, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff,
+                          update_w_avg=update_w_avg)
+        return self.synthesis(images_in, masks_in, ws, noise_mode, generator=generator,
+                              return_stg1=return_stg1)

@@ -126,6 +126,20 @@ class Synthesizer:
                       "Convert weights with waldo_tpu_torch.eval.lpips."
                       "convert_lpips_state_dict (and numpy.savez).", file=sys.stderr, flush=True)
 
+    def shard_sequence(self, on: bool = True) -> None:
+        """Splits (or, with ``on`` False, stops splitting) the tokens of the
+        three attention stacks the JAX package shards over the "seq" mesh
+        axis (LVD's pose estimator and its layer estimator's context, FLP's
+        pose encoder) among the seq ranks of the process grid
+        (parallel/sharding.py); the identity without a seq axis of S > 1.
+        Every rank of a seq line then has to run the same calls."""
+        for net in (self.lvd, self.flp):
+            if net is None:
+                continue
+            for module in net.modules():
+                if hasattr(module, "shard_seq"):
+                    module.shard_seq = on
+
     def nets(self) -> Dict[str, torch.nn.Module]:
         """The nets under the JAX package's parameter-tree keys."""
         nets = {"pe": self.lvd, "pg": self.flp, "ii": self.wif, "id": self.disc}

@@ -17,6 +17,15 @@ its input when its caller hands it a ``noise`` stream (the JAX package's
 ``randn(shape, device)`` draws, such as ``parallel.RowStream``, which draws
 at the global batch's shape and keeps the rank's rows; without one it adds
 none.
+
+Sequence sharding (parallel/sharding.py): a ``Block`` or ``MultiBlocks``
+handed a ``tokens`` shard (a ``parallel.TokenShard``) runs on this seq
+rank's part of a sharded stream: x for ``full`` (its queries stay local,
+its keys and values are gathered from the seq line before ``_mha``), x_ctx
+for ``obj`` (the keys and values of the context are gathered; x, the
+object queries, is replicated). A ``key_mask`` stays over the whole
+stream, as the gathered keys are. Norms and MLPs are per token. Token noise
+on a sharded x is drawn at the whole stream's shape and sliced.
 """
 from __future__ import annotations
 
@@ -107,12 +116,15 @@ def _mha(q, k, v, num_heads: int, key_mask: Optional[torch.Tensor] = None):
     return out.transpose(1, 2).reshape(b, nq, c)
 
 
-def _add_noise(x, strength, noise):
+def _add_noise(x, strength, noise, tokens=None):
     """x (B, N, C) plus one N(0, 1) draw per token from the stream
-    ``noise`` times ``strength``; x itself where either is None."""
+    ``noise`` times ``strength``; x itself where either is None. Where x is
+    a ``tokens`` shard, the draw is the whole stream's, sliced."""
     if strength is None or noise is None:
         return x
-    eps = noise.randn(tuple(x.shape[:2]) + (1,), x.device)
+    shape = tuple(x.shape[:2]) + (1,)
+    eps = (noise.randn(shape, x.device) if tokens is None
+           else tokens.randn(noise, shape, x.device))
     return x + eps * strength
 
 
@@ -130,9 +142,14 @@ class FullAttention(nn.Module):
         if self.noise_strength is not None:
             self.noise_strength.zero_()
 
-    def forward(self, x, x_ctx=None, key_mask=None, noise=None):
-        x = _add_noise(x, self.noise_strength, noise)
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None, tokens=None):
+        x = _add_noise(x, self.noise_strength, noise, tokens)
+        qkv = self.qkv(x)
+        c = qkv.shape[-1] // 3
+        q, kv = qkv[..., :c], qkv[..., c:]
+        if tokens is not None:  # x is a shard: the seq line's keys and values
+            kv = tokens.gather(kv)
+        k, v = kv.chunk(2, dim=-1)
         return self.proj(_mha(q, k, v, self.num_heads, key_mask))
 
 
@@ -168,9 +185,12 @@ class ObjAttention(nn.Module):
         self.kv = Dense(dim, dim * 2, bias=False, dtype=dtype)
         self.proj = Dense(dim, dim, dtype=dtype)
 
-    def forward(self, x, x_ctx=None, key_mask=None, noise=None):
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None, tokens=None):
         k_obj, v_obj = self.kv(x).chunk(2, dim=-1)
-        k_ctx, v_ctx = self.kv(x_ctx).chunk(2, dim=-1)
+        kv_ctx = self.kv(x_ctx)
+        if tokens is not None:  # x_ctx is a shard
+            kv_ctx = tokens.gather(kv_ctx)
+        k_ctx, v_ctx = kv_ctx.chunk(2, dim=-1)
         k = torch.cat([k_obj, k_ctx], dim=1)
         v = torch.cat([v_obj, v_ctx], dim=1)
         return self.proj(_mha(self.q(x), k, v, self.num_heads))
@@ -394,9 +414,16 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+# the attention types a Block runs on a sharded stream: x for "full", x_ctx
+# for "obj" (the JAX package shards no other)
+_SHARDABLE = ("full", "obj")
+
+
 class Block(nn.Module):
     """Pre-norm transformer block; ``full_with_cond_norm`` modulates the two
-    norms by an Mlp of ``z_cond`` (B, 1, C)."""
+    norms by an Mlp of ``z_cond`` (B, 1, C). With ``tokens`` (a
+    ``parallel.TokenShard``) it runs on the seq rank's part of the sharded
+    stream (the module docstring)."""
 
     def __init__(self, dim, num_heads, block_type="full", norm_layer="ln",
                  noise=False, dtype=torch.float32, causal_mask_sizes=()):
@@ -407,14 +434,20 @@ class Block(nn.Module):
         self.attn = _attention(block_type, dim, num_heads, noise, dtype, causal_mask_sizes)
         self.norm2 = CustomNorm(norm_layer, dim)
         self.mlp = Mlp(dim, dtype=dtype)
+        self.block_type = block_type
 
-    def forward(self, x, x_ctx=None, key_mask=None, noise=None, z_cond=None):
+    def forward(self, x, x_ctx=None, key_mask=None, noise=None, z_cond=None, tokens=None):
         if self.cond is None:
             h = self.norm1(x)
         else:
             a1, b1, a2, b2 = self.cond(z_cond).reshape(x.shape[0], 1, 4, -1).unbind(2)
             h = a1 * self.norm1(x) + b1
-        x = x + self.attn(h, x_ctx=x_ctx, key_mask=key_mask, noise=noise)
+        if tokens is None:
+            x = x + self.attn(h, x_ctx=x_ctx, key_mask=key_mask, noise=noise)
+        elif self.block_type in _SHARDABLE:
+            x = x + self.attn(h, x_ctx=x_ctx, key_mask=key_mask, noise=noise, tokens=tokens)
+        else:
+            raise ValueError(f"a {self.block_type!r} block cannot run on sharded tokens")
         h = self.norm2(x)
         if self.cond is not None:
             h = a2 * h + b2
@@ -429,7 +462,7 @@ class MultiBlocks(nn.Module):
             Block(dim, num_heads, block_type, norm_layer, noise, dtype, causal_mask_sizes)
             for _ in range(depth))
 
-    def forward(self, x, x_ctx=None, key_mask=None, z_cond=None):
+    def forward(self, x, x_ctx=None, key_mask=None, z_cond=None, tokens=None):
         for blk in self.layers:
-            x = blk(x, x_ctx=x_ctx, key_mask=key_mask, z_cond=z_cond)
+            x = blk(x, x_ctx=x_ctx, key_mask=key_mask, z_cond=z_cond, tokens=tokens)
         return x

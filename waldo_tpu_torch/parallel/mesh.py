@@ -21,18 +21,31 @@ parallelism does:
     (train/train_state.py).
 Where no process group is up (no ``WORLD_SIZE`` in the environment), every
 function here is world 1's identity.
+
+The process grid (``init_grid``, from ``cfg.mesh_shape`` / ``cfg.mesh_axes``
+as the JAX package's ``make_mesh`` lays devices out): ranks are
+``np.arange(W).reshape(mesh_shape)``, so on ("data", "seq") rank = d S + s.
+The batch splits over the first axis alone, as the JAX package's
+``shard_batch`` splits it: the loader's rows, ``BatchShard``, ``RowStream``,
+``all_gather`` and the means work over the rank's data coordinate and its
+data line (the ranks that differ from it on the data axis only). The
+ranks that share a data coordinate (on ("data", "seq"), a seq line) hold
+the same rows and make the same draws; a "seq" axis splits the token axis
+of the attention stacks among them (parallel/sharding.py). Without a grid
+(``init_grid`` not called) every rank lies on the data axis.
 """
 from __future__ import annotations
 
 import datetime
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import check_mesh
+from ..config import check_mesh, check_mesh_shape
 
 TIMEOUT_S = 300  # the reference's process-group timeout
 
@@ -60,6 +73,123 @@ def is_main() -> bool:
     return rank() == 0
 
 
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place on the process grid: its data and seq coordinates
+    and the sizes of those axes, and the process groups of its data line
+    and its seq line (the ranks that differ from it on that axis only; None
+    where the line is the whole world or one rank)."""
+
+    data_rank: int = 0
+    data_world: int = 1
+    seq_rank: int = 0
+    seq_world: int = 1
+    data_group: Optional[object] = None
+    seq_group: Optional[object] = None
+
+
+_GRID: Optional[Grid] = None
+
+
+def _line_group(ids: np.ndarray, axis: int, r: int):
+    """Every line of ``ids`` along ``axis`` made a process group, in one
+    order on every rank (``dist.new_group`` is collective); returns the
+    group of the line that holds rank ``r``."""
+    lines = np.moveaxis(ids, axis, -1).reshape(-1, ids.shape[axis])
+    mine = None
+    for line in lines:
+        group = dist.new_group([int(i) for i in line])
+        if r in line:
+            mine = group
+    return mine
+
+
+def grid_coordinates(mesh_shape: Optional[Sequence[int]], mesh_axes: Sequence[str], world: int,
+                     r: int) -> Tuple[int, int, int, int]:
+    """Rank ``r``'s (data rank, data world, seq rank, seq world) on the grid
+    of ``mesh_shape`` over ``mesh_axes`` at ``world`` ranks
+    (config.check_mesh_shape's rules): rank r sits at
+    ``np.unravel_index(r, shape)``, the JAX package's device order."""
+    axes = list(mesh_axes)
+    shape = check_mesh_shape(mesh_shape, axes, world)
+    coords = np.unravel_index(r, shape)
+    if "seq" not in axes:
+        return int(coords[0]), shape[0], 0, 1
+    s = axes.index("seq")
+    return int(coords[0]), shape[0], int(coords[s]), shape[s]
+
+
+def init_grid(mesh_shape: Optional[Sequence[int]], mesh_axes: Sequence[str]) -> Grid:
+    """The grid of ``mesh_shape`` over ``mesh_axes`` at the process group's
+    world size (``grid_coordinates``), its data and seq lines made process
+    groups; every rank calls it, once, after ``init_distributed``. Returns
+    this rank's ``Grid``."""
+    global _GRID
+    axes, w = list(mesh_axes), world_size()
+    shape = check_mesh_shape(mesh_shape, axes, w)
+    d_rank, d_world, s_rank, s_world = grid_coordinates(shape, axes, w, rank())
+    ids = np.arange(w).reshape(shape)
+    data_group = seq_group = None
+    if d_world not in (1, w):
+        data_group = _line_group(ids, 0, rank())
+    if s_world > 1:
+        seq_group = _line_group(ids, axes.index("seq"), rank())
+    _GRID = Grid(d_rank, d_world, s_rank, s_world, data_group, seq_group)
+    return _GRID
+
+
+def reset_grid() -> None:
+    """Forgets the grid (every rank on the data axis again), as before
+    ``init_grid``; for a process whose group is destroyed."""
+    global _GRID
+    _GRID = None
+
+
+def grid() -> Grid:
+    """This rank's grid: ``init_grid``'s, else every rank on the data axis."""
+    if _GRID is not None and distributed():
+        return _GRID
+    return Grid(data_rank=rank(), data_world=world_size())
+
+
+def data_rank() -> int:
+    """This rank's coordinate on the grid's first (data) axis."""
+    return grid().data_rank
+
+
+def data_world() -> int:
+    """The size of the data axis: the number of parts of the batch."""
+    return grid().data_world
+
+
+def seq_rank() -> int:
+    """This rank's coordinate on the "seq" axis (0 without one)."""
+    return grid().seq_rank
+
+
+def seq_world() -> int:
+    """The size of the "seq" axis (1 without one)."""
+    return grid().seq_world
+
+
+def data_group():
+    """The process group of this rank's data line (None: the whole world)."""
+    return grid().data_group
+
+
+def seq_group():
+    """The process group of this rank's seq line (None without a seq axis)."""
+    return grid().seq_group
+
+
+def rows_writer() -> bool:
+    """Whether this rank is the first of those that share its data
+    coordinate (every other coordinate 0): the one that writes their rows'
+    files."""
+    g = grid()
+    return rank() == data_rank() * (world_size() // g.data_world)
+
+
 def local_device(device) -> torch.device:
     """``device``, or this process's card ``cuda:LOCAL_RANK`` where
     ``device`` names the card type without an index under torchrun."""
@@ -84,6 +214,7 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    reset_grid()
     dist.init_process_group(backend, init_method=init_method,
                             world_size=int(os.environ["WORLD_SIZE"]),
                             rank=int(os.environ["RANK"]),
@@ -93,11 +224,13 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
 
 def setup(cfg, device="cuda") -> torch.device:
     """A run's start on every rank (the trainer's and the evaluator's): the
-    config's mesh checked, the process group up under torchrun, rank 0's
+    config's mesh checked against the launcher's world size, the process
+    group and the grid's groups up under torchrun, rank 0's
     ``cfg.datetime`` (which names the run's directories) on every rank.
     Returns this process's device."""
-    check_mesh(cfg)
-    init_distributed(device)
+    check_mesh(cfg, world_size() if distributed() else int(os.environ.get("WORLD_SIZE", "1")))
+    if init_distributed(device):
+        init_grid(cfg.mesh_shape, cfg.mesh_axes)
     cfg.datetime = broadcast_object(cfg.datetime)
     return local_device(device)
 
@@ -129,19 +262,20 @@ def broadcast_tensors_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the ranks (a new tensor)."""
-    if not distributed():
+    """The mean of ``x`` over the rank's data line (a new tensor): the
+    ranks that share a data coordinate hold equal values."""
+    if data_world() == 1:
         return x
     y = x.clone()
-    dist.all_reduce(y)
-    return y / world_size()
+    dist.all_reduce(y, group=data_group())
+    return y / data_world()
 
 
 def mean_over_ranks(values: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
     """Each 0-d entry of ``values`` (tensors or floats) averaged over the
-    ranks in one all-reduce, as float32 tensors on ``device``; every rank
-    must hand over the same keys."""
-    if not distributed() or not values:
+    data line in one all-reduce, as float32 tensors on ``device``; every
+    rank must hand over the same keys."""
+    if data_world() == 1 or not values:
         return values
     keys = sorted(values)
     vec = torch.stack([torch.as_tensor(values[k], device=device).float().reshape(())
@@ -150,33 +284,42 @@ def mean_over_ranks(values: Dict[str, torch.Tensor], device) -> Dict[str, torch.
 
 
 class _AllGather(torch.autograd.Function):
-    """The ranks' equal-sized ``x`` stacked along dim 0, in rank order. Both
-    directions are one all-reduce, which gloo runs on CUDA tensors too: the
-    forward sums buffers that hold each rank's rows and zeros elsewhere
-    (exact), the backward sums the ranks' gradients and keeps the rank's
-    rows, so every rank's use of the gathered tensor reaches the rows'
-    owner."""
+    """The equal-sized ``x`` of a group's ranks concatenated along ``dim``,
+    in group-rank order. Both directions are one all-reduce over the group,
+    which gloo runs on CUDA tensors too: the forward sums buffers that hold
+    each rank's part and zeros elsewhere (exact), the backward sums the
+    ranks' gradients and keeps the rank's part, so every rank's use of the
+    gathered tensor reaches the part's owner."""
 
     @staticmethod
-    def forward(ctx, x):
-        n, r = x.shape[0], rank()
-        ctx.rows = slice(r * n, (r + 1) * n)
-        out = x.new_zeros((world_size() * n,) + tuple(x.shape[1:]))
-        out[ctx.rows] = x
-        dist.all_reduce(out)
+    def forward(ctx, x, dim, group):
+        n, r = x.shape[dim], dist.get_rank(group)
+        ctx.dim, ctx.group, ctx.start, ctx.n = dim, group, r * n, n
+        shape = list(x.shape)
+        shape[dim] = dist.get_world_size(group) * n
+        out = x.new_zeros(shape)
+        out.narrow(dim, r * n, n).copy_(x)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g[ctx.rows]
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (equal shapes) concatenated along dim 0 in rank
-    order, differentiable; ``x`` itself without a process group."""
-    return _AllGather.apply(x) if distributed() else x
+def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """Every rank's ``x`` of a group (equal shapes; the data line by
+    default) concatenated along ``dim`` in rank order, differentiable;
+    ``x`` itself where the group is one rank."""
+    if group is None:
+        if data_world() == 1:
+            return x
+        group = data_group()
+    if group is None:  # the data line is the whole world
+        group = dist.group.WORLD
+    return _AllGather.apply(x, dim, group)
 
 
 @dataclass(frozen=True)
@@ -195,9 +338,10 @@ class BatchShard:
 
     @classmethod
     def of_rank(cls, local_size: int) -> "BatchShard":
-        """This rank's rows when every rank holds ``local_size`` of them."""
-        w = world_size()
-        return cls(rank() * local_size, local_size, w * local_size, w)
+        """This rank's rows when every rank holds ``local_size`` of them: the
+        rows of its data coordinate among the data axis's parts."""
+        w = data_world()
+        return cls(data_rank() * local_size, local_size, w * local_size, w)
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's rows of a tensor over the global batch."""

@@ -14,7 +14,11 @@ Under torchrun (cli/test.py) it runs data-parallel, one process per card
 global batch of B clips and dumps them as ``(i W + r) B/W + b`` for its row
 b of batch i, which is world 1's id ``i B + r B/W + b`` of the same clip;
 ``run`` returns the metric means over the ranks, the same dict on every
-rank as at world 1. ``iteration_times`` stays the rank's own.
+rank as at world 1. ``iteration_times`` stays the rank's own. On a
+(data, seq) grid r and W are the data coordinate and the data axis's size
+D: the S ranks of a data coordinate predict its rows alike, on whole token
+streams (the JAX evaluator registers no active mesh, so nothing is
+sharded), the first of them dumps them, and the means are world D's.
 """
 from __future__ import annotations
 
@@ -166,6 +170,8 @@ class Evaluator:
         return t1 - t0, time.perf_counter() - t1
 
     def _dump(self, out: Dict[str, np.ndarray], i: int) -> None:
+        if not mesh.rows_writer():  # one rank of a data coordinate writes its rows
+            return
         for name in DUMPS:
             if name not in out:
                 continue
@@ -174,7 +180,7 @@ class Evaluator:
             vids = out[name]
             for b in range(vids.shape[0]):
                 # the JAX package's rank-aware id: world 1's for the same clip
-                vid_id = (i * mesh.world_size() + mesh.rank()) * vids.shape[0] + b
+                vid_id = (i * mesh.data_world() + mesh.data_rank()) * vids.shape[0] + b
                 fmt = save_video_frames(vids[b], os.path.join(folder, f"vid_{vid_id:05d}.mp4"),
                                         fps=4)
                 if self.dump_format is None:

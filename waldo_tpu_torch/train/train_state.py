@@ -23,6 +23,23 @@ every rank then applies the ranks' mean gradient, or skips when any rank's
 loss was not finite. The parameters are broadcast from rank 0 once, at
 construction, as DDP does. Without a process group the step is the same
 path without the all-reduce.
+
+On a (data, seq) grid of W = D S ranks (parallel/mesh.py) the reduction is
+the same one all-reduce over the world, divided by W. The design: the S
+ranks of a data coordinate hold the same loss, and each rank's gradient is
+a part of S times the gradient of their rows, the S parts summing to it. A
+leaf that only replicated compute reaches (past the sharded stacks'
+gathers) holds the rows' whole gradient on each of the S ranks. A leaf
+inside a sharded stack, or before it, holds what its rank's tokens
+contribute, at S times the scale: the gather after a stack hands each rank
+the sum of the S ranks' gradients of the gathered stream, each of them the
+whole (parallel/sharding.py), and the gathers inside carry that scale on.
+Summed over the world, every leaf is then S times the sum of the D data
+coordinates' gradients, whatever mix of the two reaches it, so dividing by
+W gives world 1's mean with no per-leaf scaling, no second collective, and
+the skip vote in the same buffer. (Scaling the replicated leaves by 1/S
+instead would need to know, per leaf, which compute reaches it; an
+embedding added before a stack and read after it sees both.)
 """
 from __future__ import annotations
 

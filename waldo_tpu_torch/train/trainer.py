@@ -30,7 +30,13 @@ rank 0 alone builds the logger, saves the config and the checkpoints, and
 prints, and the ranks wait for each save. Logged training metrics and the
 eval means are means over the ranks, so every rank takes the same
 "best_vid" decision; ``nancount`` is the same on every rank, so the abort
-after 10 skipped steps is too.
+after 10 skipped steps is too. With ``--mesh_shape D,S --mesh_axes
+data,seq`` the W = D S ranks form a process grid (parallel/mesh.py): the
+batch splits over the D data coordinates, and the S ranks of a data
+coordinate split the tokens of the attention stacks the JAX package shards
+(``Synthesizer.shard_sequence``, parallel/sharding.py), in training and in
+the trainer's evaluation, as the JAX trainer's active mesh does; rank 0's
+visuals run on whole streams.
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ class Trainer:
         self.is_main = mesh.is_main()
         if self.is_main and mesh.distributed():
             print(f"[dist] {mesh.backend()} process group of {mesh.world_size()}; global batch "
-                  f"{cfg.batch_size_vid}", flush=True)
+                  f"{cfg.batch_size_vid}; grid {mesh.data_world()} data x {mesh.seq_world()} "
+                  "seq", flush=True)
         self.cfg = cfg
         self._train_modes = list(cfg.vid_modes) + list(cfg.img_modes)
         for mode in self._train_modes:
@@ -75,6 +82,7 @@ class Trainer:
         if "vid_inpainting" in self._train_modes and "dis" in cfg.model.vid_inpainting_losses:
             self._train_modes.append("vid_inpainting_dis")
         self.syn = Synthesizer(cfg, device=device, seed=cfg.seed)
+        self.syn.shard_sequence()  # the identity without a seq axis
         self.device = self.syn.device
         self.ckpt = CheckpointManager(cfg.checkpoint_path)
         self.logger = Logger(cfg.log_path) if self.is_main else None
@@ -272,7 +280,11 @@ class Trainer:
             # raises ValueError inside its try and prints a line)
             return
         generator = torch.Generator(device=self.device).manual_seed(self.cfg.seed + it)
-        arrays, pts = self.syn.visuals(mode, batch, generator=generator)
+        self.syn.shard_sequence(False)  # rank 0 alone: its stacks run on whole streams
+        try:
+            arrays, pts = self.syn.visuals(mode, batch, generator=generator)
+        finally:
+            self.syn.shard_sequence()
         host = lambda d: {k: v[:max_items].float().cpu().numpy() for k, v in d.items()}
         cfg = self.cfg
         self.logger.log_visuals(f"{mode}/train", host(arrays), host(pts), it,
