@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k2-fwd
     python3 chip_smoke.py --gan [--out results.json]
     python3 chip_smoke.py --seq
+    python3 chip_smoke.py --kitti [--out results.json] [--profile DIR]
 
 Phases, in order; any failure exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit and the
@@ -102,7 +103,12 @@ Phases, in order; any failure exits non-zero:
      convert_mat_weights and loaded by MatInpainter(weights_path=...): one
      forward equal to the source's, bias_act once per MAT layer; each
      conversion timed.
- 12. data parallelism over processes (phase_dist, also alone with --dist).
+ 12. data parallelism over processes (phase_dist, also alone with --dist):
+     the training CLI under torchrun with NCCL at world 1, resumed and timed
+     by a rank; two gloo ranks on card 0 held to world 1 in this process
+     (the ranks bitwise equal after each step, the first step's reduced
+     gradients per leaf, the losses, the parameters within the Adam bound
+     and within twice world 1's own spread, world 1 run twice).
  13. WIF adversarial training: train_wif.sh's flags with the GAN losses
      ("sharp_vid lpips_vid adv dis") and the adaptive lambda, at the
      script's width (B=8, 5 frames loaded at 512x1024, UNet depth 6, embed
@@ -123,14 +129,38 @@ Phases, in order; any failure exits non-zero:
      one card), SEQ_STEPS steps through Trainer.step, the seq ranks
      splitting the tokens of LVD's pose estimator and layer estimator
      (FLP's encoder, 255 tokens, stays whole): strict launch counts per
-     step, the ranks' parameters bitwise equal after each step, the loss
-     and parameters against world 1 at B = 4 in this process, ms a step
+     step, the ranks' parameters bitwise equal after each step, each
+     step's reduced gradients per leaf, the losses and the last step's
+     parameters against world 1 at B = 4 in this process, each of its steps
+     taken from the grid's parameters before that step, ms a step
      against world 1's, the gloo bytes a step, each rank's peak memory;
      (c) where there are two cards or more, (a) with NCCL, a card a rank,
      on a W/2 x 2 grid at train_lvd.sh's B = 8; (d) the VGG19 loss card vs
      CPU and timed on 8 frame pairs of 512x1024; (e) a MAT Generator at
      128 with truncation_cutoff, update_w_avg, return_stg1 and a bias-free
      layer card vs CPU, bias_act once per layer call.
+ 15. the KITTI family (phase_kitti, also alone with --kitti): (a) a
+     KITTI-format tree (write_kitti_tree: frames at 128x416 and 256x832,
+     labels of 19 classes, flows at 128x416); (b) scripts/kitti/train_lvd.sh,
+     train_flp.sh and train_wif.sh on it at their widths (LVD B=8 x 10
+     frames of 128x416, FLP B=4 from its slot, WIF B=8 x 5 frames of
+     256x832 loaded from 10 with load_n_plus_1, seeded random LPIPS):
+     Trainer.run with strict launch counts, finite losses, no skipped step,
+     the parameters moved, the latest slots restored equal, the steps timed
+     with their peak memory, and each step's samples (K2', its backward,
+     K2's batch mode, the pre-pass) against their plain versions on the
+     inputs a step hands them, timed beside their bounds; (c) test.sh
+     through the test CLI from (b)'s runs (per predict K1 with its ghost
+     mask and K2 at N=40 and 24, the pre-pass twice), the dumps, the metrics
+     CLI, ms per predict and per evaluator iteration, K1, K2 and the pre-pass
+     at 256x832 on the predict's inputs and dense ones, a small float32
+     predict and evaluator at KITTI's geometry card vs CPU (steep_check),
+     and test_mat.sh with seeded random MAT weights (MAT's non-square path,
+     three forwards a frame, K2's batch mode on the MAT warps in its
+     envelope); (d) scripts/cityscapes/demo.sh from phases 7-9's runs (the
+     whole script only) and scripts/kitti/demo.sh from (b)'s, on trees
+     under a path naming "demo"; (e) K2's edge cases at widths 832 and 416
+     with 22 channels.
 Phases 7-9 also time the training loop's iterations (a batch from the
 prefetching loader, its copy, one step) with the script's loader workers
 and (phases 7, 8) with one, beside the host's time to make one batch's
@@ -146,9 +176,9 @@ CPU. Phase
 10 also runs the metrics CLI with fid and fvd on test.sh's dumps, without
 weights (rfid, rfvd_proxy) and with seeded random Inception and I3D weight
 files (fid, fvd), and times both extractors on the dumps.
-With --profile DIR, phases 4, 5, 7, 8, 9 and 10 also trace one predict, one
-MAT clip, one training step of each net, one loop iteration of each and one
-evaluator iteration with torch.profiler and write the device time per span
+With --profile DIR, phases 4, 5, 7, 8, 9, 10 and 15 also trace one predict,
+one MAT clip, one training step of each net, one loop iteration of each and
+one evaluator iteration with torch.profiler and write the device time per span
 and per kernel, and the device's idle share, to
 DIR/profile{,_mat,_train,_flp,_wif_*,*_iteration}.json and .txt.
 The line before the last is the kernels' JSON summary; the last line is
@@ -160,13 +190,16 @@ and replayed), beside its first design (csrc/yardstick/grid_sample_fwd_pr1.cu)
 timed in turns on the device and F.grid_sample a call and on the device;
 the MAT warps' rows also split a call's host time (k2_host_split).
 With --k1-stress REPS only phase 1 runs, then phase 3's flagship cases of
-the fused warp REPS times each into outputs that start as NaN (k1_stress);
+the fused warp and four at KITTI's 256x832 REPS times each into outputs that
+start as NaN (k1_stress);
 the last line is its JSON summary.
 With --gan only phases 1, 2 and 13 run, the teacher a seeded LVD slot at
 train_lvd.sh's flags (gan_teacher); the last line is its JSON summary.
 With --seq only phases 1, 2 and 14 run; the last line is its JSON summary.
+With --kitti only phases 1, 2 and 15 run (not the Cityscapes demo.sh); the
+last line is its JSON summary.
 With --k2-fwd only phases 1 and 2 run, then K2's forward on its edge cases
-and at every row's shapes on dense inputs (k2_fwd_study, with the L2 test:
+(phase 3's and phase 15's KITTI ones) and at every row's shapes on dense inputs (k2_fwd_study, with the L2 test:
 a texture shared by tp_sz 14 grid rows against its 56 copies); the last
 line is its JSON summary.
 """
@@ -373,61 +406,110 @@ def k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype=None):
     return img, grid
 
 
+def scene_frames(h, w, fh, fw, n_frames, num_cls, seed):
+    """The frames of one sequence of smooth moving content at h x w: a
+    drifting sinusoid texture over a two-class ground and 2-3 moving
+    rectangles of other classes (ids below ``num_cls``), the same scene at
+    any size for one seed. Yields (RGB uint8 (h, w, 3), labels uint8 (h,
+    w), flow float32 (fh, fw, 2)): each frame's displacement from the frame
+    before, in the flow's pixels (0 at the first frame)."""
+    rng = np.random.RandomState(seed)
+    freq = (rng.rand(4) * 0.05 + 0.01) * 512 / h
+    phase, slope, amp = rng.rand(4) * 6.28, rng.rand(4) * 2 - 1, rng.rand(4, 3) * 0.2
+    vel = rng.randn(2).astype(np.float32) * 0.004 * w  # background, px per frame
+    objs = [dict(c=rng.rand(2) * (w, h), v=rng.randn(2) * 0.006 * w,
+                 half=(rng.rand(2) * 0.08 + 0.04) * (w, h), rgb=rng.rand(3) * 255,
+                 cls=int(rng.randint(2, num_cls))) for _ in range(rng.randint(2, 4))]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    fy, fx = np.mgrid[0:fh, 0:fw].astype(np.float32)
+    for k in range(n_frames):
+        ox, oy = vel * k
+        tex = sum(amp[i] * np.sin(freq[i] * ((xx + ox) + slope[i] * (yy + oy))
+                                  + phase[i])[..., None] for i in range(4))
+        img = np.clip((0.5 + tex) * 255, 0, 255)
+        lab = np.where(yy > h * 0.55, 0, 1).astype(np.uint8)
+        fl = np.broadcast_to(-vel * fw / w, (fh, fw, 2)).copy()
+        for o in objs:
+            cx, cy = o["c"] + o["v"] * k
+            m = (np.abs(xx - cx) < o["half"][0]) & (np.abs(yy - cy) < o["half"][1])
+            img[m] = o["rgb"]
+            lab[m] = o["cls"]
+            mf = ((np.abs(fx * w / fw - cx) < o["half"][0])
+                  & (np.abs(fy * h / fh - cy) < o["half"][1]))
+            fl[mf] = -o["v"] * fw / w
+        yield img.astype(np.uint8), lab, (fl if k > 0 else np.zeros_like(fl))
+
+
 def write_cityscapes_tree(root, true_dim, flow_dim, n_seqs, n_frames=30, split="val",
                           lyt_model="deeplabv3", flow_model="raft", num_cls=20, seed=0):
     """A Cityscapes-format tree under ``root`` at true_dim x 2*true_dim, the
     layout and flow trees beside it: ``n_seqs`` sequences of ``n_frames``
-    frames of smooth moving content (a drifting sinusoid texture over a
-    two-class ground, and 2-3 moving rectangles of other classes), labels as
-    8-bit PNGs of class ids below ``num_cls`` and .flo files at flow_dim x
-    2*flow_dim holding each frame's displacement from the frame before, in
-    the flow file's pixels (0 at the first frame). Returns the frame
+    frames of scene_frames' content, labels as 8-bit PNGs of class ids below
+    ``num_cls`` and .flo files at flow_dim x 2*flow_dim. Returns the frame
     folder."""
     import PIL.Image
     from waldo_tpu_torch.data import write_flo
 
-    h, w = true_dim, 2 * true_dim
-    fh, fw = flow_dim, 2 * flow_dim
     sfx = "" if true_dim == 1024 else f"_{true_dim}"
     dirs = {"rgb": f"leftImg8bit_sequence{sfx}", "lyt": f"leftImg8bit_sequence_{lyt_model}{sfx}",
             "flow": f"leftImg8bit_sequence_{flow_model}_{flow_dim}"}
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    fy, fx = np.mgrid[0:fh, 0:fw].astype(np.float32)
+    paths = {key: os.path.join(root, d, split, "smoke") for key, d in dirs.items()}
+    for p in paths.values():
+        os.makedirs(p, exist_ok=True)
     for s in range(n_seqs):
-        rng = np.random.RandomState(seed + s)
-        freq = (rng.rand(4) * 0.05 + 0.01) * 512 / h
-        phase, slope, amp = rng.rand(4) * 6.28, rng.rand(4) * 2 - 1, rng.rand(4, 3) * 0.2
-        vel = rng.randn(2).astype(np.float32) * 0.004 * w  # background, px per frame
-        objs = [dict(c=rng.rand(2) * (w, h), v=rng.randn(2) * 0.006 * w,
-                     half=(rng.rand(2) * 0.08 + 0.04) * (w, h), rgb=rng.rand(3) * 255,
-                     cls=int(rng.randint(2, num_cls))) for _ in range(rng.randint(2, 4))]
-        name = f"smoke_{s:06d}"
-        for k in range(n_frames):
-            ox, oy = vel * k
-            tex = sum(amp[i] * np.sin(freq[i] * ((xx + ox) + slope[i] * (yy + oy))
-                                      + phase[i])[..., None] for i in range(4))
-            img = np.clip((0.5 + tex) * 255, 0, 255)
-            lab = np.where(yy > h * 0.55, 0, 1).astype(np.uint8)
-            fl = np.broadcast_to(-vel * fw / w, (fh, fw, 2)).copy()
-            for o in objs:
-                cx, cy = o["c"] + o["v"] * k
-                m = (np.abs(xx - cx) < o["half"][0]) & (np.abs(yy - cy) < o["half"][1])
-                img[m] = o["rgb"]
-                lab[m] = o["cls"]
-                mf = ((np.abs(fx * w / fw - cx) < o["half"][0])
-                      & (np.abs(fy * h / fh - cy) < o["half"][1]))
-                fl[mf] = -o["v"] * fw / w
-            stem = f"{name}_{k:06d}_leftImg8bit"
-            paths = {key: os.path.join(root, d, split, "smoke") for key, d in dirs.items()}
-            for p in paths.values():
-                os.makedirs(p, exist_ok=True)
-            PIL.Image.fromarray(img.astype(np.uint8)).save(
-                os.path.join(paths["rgb"], stem + ".png"), compress_level=1)
+        for k, (img, lab, fl) in enumerate(scene_frames(true_dim, 2 * true_dim, flow_dim,
+                                                        2 * flow_dim, n_frames, num_cls,
+                                                        seed + s)):
+            stem = f"smoke_{s:06d}_{k:06d}_leftImg8bit"
+            PIL.Image.fromarray(img).save(os.path.join(paths["rgb"], stem + ".png"),
+                                          compress_level=1)
             PIL.Image.fromarray(lab).save(os.path.join(paths["lyt"], stem + ".png"),
                                           compress_level=1)
-            write_flo(os.path.join(paths["flow"], stem + ".flo"),
-                      fl if k > 0 else np.zeros_like(fl))
+            write_flo(os.path.join(paths["flow"], stem + ".flo"), fl)
     return os.path.join(root, dirs["rgb"])
+
+
+def write_kitti_tree(root, true_dims, flow_dim, splits, lyt_model="deeplabv3",
+                     flow_model="raft", num_cls=19, seed=0):
+    """A KITTI-format tree under ``root`` as the scripts' --data.load_all
+    true reads it (data/kitti.py): for each split and sequence,
+    all_vid_<td>/<split>/<seq>/image_02/data/<i>.png frames at td x 3.25 td
+    for each td of ``true_dims``, the labels beside them
+    (all_vid_<lyt_model>_<td>/..., 8-bit PNGs of class ids below
+    ``num_cls``) and .flo files at flow_dim x 3.25 flow_dim
+    (all_vid_<flow_model>_<flow_dim>/...). ``splits`` maps "train" / "test"
+    to (sequences, frames a sequence); each sequence is scene_frames'
+    content, the same scene at every size. The sequences are written in
+    threads. Returns ``root``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import PIL.Image
+    from waldo_tpu_torch.data import write_flo
+
+    fw = int(flow_dim * 3.25)
+
+    def write(split, s, td):
+        seq, w = f"smoke_{s:04d}", int(td * 3.25)
+        dirs = {kind: os.path.join(root, f"all_vid{kind}_{dim}", split, seq, "image_02", "data")
+                for kind, dim in (("", td), (f"_{lyt_model}", td), (f"_{flow_model}", flow_dim))}
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        for k, (img, lab, fl) in enumerate(scene_frames(td, w, flow_dim, fw, splits[split][1],
+                                                        num_cls, seed + 1000 * (split == "test")
+                                                        + s)):
+            PIL.Image.fromarray(img).save(os.path.join(dirs[""], f"{k:06d}.png"),
+                                          compress_level=1)
+            PIL.Image.fromarray(lab).save(os.path.join(dirs[f"_{lyt_model}"], f"{k:06d}.png"),
+                                          compress_level=1)
+            if td == true_dims[0]:  # the flows once a sequence
+                write_flo(os.path.join(dirs[f"_{flow_model}"], f"{k:06d}.flo"), fl)
+
+    jobs = [(split, s, td) for split, (n, _) in splits.items() for s in range(n)
+            for td in true_dims]
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(write, *job) for job in jobs]:
+            f.result()
+    return root
 
 
 def reference_state_dict(syn, net):
@@ -863,9 +945,10 @@ def flagship_batch(cfg, dev, seed=0):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def k1_stress(dev, reps, n_cases=8):
-    """Phase 3's first n_cases flagship cases of the fused warp (its
-    RandomState(0) inputs, made in its order), each run reps times, to tell
+def k1_stress(dev, reps, n_cases=12):
+    """The first n_cases of phase 3's eight flagship cases of the fused warp
+    (its RandomState(0) inputs, made in its order) and four at KITTI's
+    256x832 with the ghost mask, each run reps times, to tell
     an output element the kernels never write from one they write wrong.
     Each repetition: the pre-pass against its plain version (exactly); the
     warp launched on those planes into outputs filled with NaN; and the
@@ -880,16 +963,18 @@ def k1_stress(dev, reps, n_cases=8):
     from waldo_tpu_torch.ops.kernels import WARP_ALPHA_CTX, plane_boxes_cuda, warp_alpha_ctx_cuda
 
     rng = np.random.RandomState(0)
+    # phase 3's flagship cases, then KITTI's at test.sh's 256x832 load (10
+    # frames: N=40 and 24), with the ghost mask as the evaluator runs it
+    specs = [(512, tp, sparse, with_io) for sparse in (False, True) for tp in (14, 10)
+             for with_io in (False, True)]
+    specs += [(832, tp, sparse, True) for sparse in (False, True) for tp in (10, 6)]
     cases = []
-    for sparse in (False, True):
-        for tp in (14, 10):
-            for with_io in (False, True):
-                if len(cases) < n_cases:
-                    a, g, o, io = k1_inputs(rng, 4, 256, 512, 17, tp, 4, with_io, dev, sparse)
-                    cases.append((f"N={4 * tp}" + (" object-sparse" if sparse else " dense")
-                                  + (" is_obj" if with_io else ""), a, g, o, io, tp, 4 * tp,
-                                  warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=4 * tp),
-                                  plane_boxes_plain(a)))
+    for w, tp, sparse, with_io in specs[:n_cases]:
+        a, g, o, io = k1_inputs(rng, 4, 256, w, 17, tp, 4, with_io, dev, sparse)
+        cases.append((f"256x{w} N={4 * tp}" + (" object-sparse" if sparse else " dense")
+                      + (" is_obj" if with_io else ""), a, g, o, io, tp, 4 * tp,
+                      warp_alpha_ctx_plain(a, g, o, io, tp_sz=tp, tcp=4 * tp),
+                      plane_boxes_plain(a)))
     nan = float("nan")
 
     def poison(*tensors):  # free blocks of these sizes, filled with NaN; their addresses
@@ -958,6 +1043,43 @@ def small_cfg():
             ii_embed_dim=32, ctx_len=2, use_pe=True, use_pg=True, use_ii=True,
             fast_inverse_warp=True, sample_precision="float32"),
     )
+
+
+def small_kitti_cfg():
+    """small_cfg() at KITTI's geometry: aspect 3.25 (32 x 104 frames on a
+    4 x 13 latent grid), 19 layout classes, 10 frames of which 4 are
+    context."""
+    from waldo_tpu_torch.config import apply_dataset_defaults
+
+    cfg = small_cfg()
+    cfg.data.dataset = "kitti"
+    apply_dataset_defaults(cfg)
+    cfg.model.latent_shape = (4, 13)
+    cfg.data.vid_len, cfg.model.ctx_len, cfg.model.pg_num_timesteps = 10, 4, 10
+    return cfg
+
+
+# Two float32 computations of a predict at KITTI's geometry disagree at a few
+# steep pixels: with seeded random nets the port's own videos move by up to
+# 0.064 on up to 0.1 % of their elements when its input flow moves by 1e-7 of
+# itself (the fused warp's alpha edges and the layers' flows, then the
+# warped one-hot layouts, carry a grid's last bits to whole pixels; measured
+# on the CPU). Such a pair is held within the tolerance on all but
+# STEEP_SHARE of the elements, those within STEEP_ATOL.
+STEEP_SHARE = 5e-3
+STEEP_ATOL = 0.1
+
+
+def steep_check(got, want, atol, label):
+    """steep_check: ``got`` against ``want`` (tensors) within ``atol`` on all
+    but STEEP_SHARE of the elements, every element within STEEP_ATOL.
+    Returns (max|err|, the share beyond atol)."""
+    diff = (got.float() - want.float()).abs()
+    err, share = float(diff.max()), float((diff > atol).float().mean())
+    check(share <= STEEP_SHARE and err <= STEEP_ATOL,
+          f"{label}: {share:.3g} of the elements beyond {atol} (at most {STEEP_SHARE}), "
+          f"max|err| {err:.3g} (at most {STEEP_ATOL})")
+    return err, share
 
 
 def spans_and_kernels(prof, wall_ms):
@@ -1544,7 +1666,33 @@ def k2_host_split(img, grid, reps=50):
     return res
 
 
-def k2_edge_checks(dev, rng):
+# KITTI's widths (832 at test.sh's load, 416 at the nets') with its 22
+# context channels (3 + 19 classes), ragged last tiles in both directions
+K2_KITTI_EDGE_CASES = tuple(
+    (2, h, w, 22, tp, ho, wo, "smooth", dtype)
+    for h, w, tp, ho, wo in ((40, 832, 3, 37, 830), (36, 416, 1, 35, 410))
+    for dtype in ("float32", "bfloat16"))
+
+
+# K2's shared-grid edge cases (k2_edge_checks) in phase 3: (F, H, W, C,
+# tp_sz, Ho, Wo, kind, dtype); phase 15 runs K2_KITTI_EDGE_CASES
+K2_EDGE_CASES = (
+    (2, 37, 52, 1, 3, 29, 45, "smooth", "float32"),
+    (2, 37, 53, 3, 1, 40, 37, "smooth", "float32"),
+    (2, 37, 52, 3, 3, 16, 48, "smooth", "float32"),
+    (3, 40, 48, 23, 1, 45, 61, "smooth", "float32"),
+    (2, 31, 45, 23, 3, 19, 70, "smooth", "float32"),
+    (2, 33, 64, 32, 3, 37, 29, "smooth", "float32"),
+    (2, 64, 96, 23, 3, 64, 96, "shrink1.5", "float32"),
+    (2, 64, 96, 23, 1, 64, 96, "shrink3", "float32"),
+    (2, 200, 256, 23, 1, 33, 40, "shrink6", "float32"),
+    (2, 37, 52, 23, 3, 20, 30, "out_of_range", "float32"),
+    (2, 37, 52, 23, 3, 29, 45, "smooth", "bfloat16"),
+    (2, 37, 53, 3, 1, 29, 45, "smooth", "bfloat16"),
+    (2, 64, 96, 23, 1, 64, 96, "shrink3", "bfloat16"))
+
+
+def k2_edge_checks(dev, rng, cases=None):
     """K2's shared-grid forward against its plain version on its edge
     cases, each launched into an output filled with NaN (an element the
     kernel never writes then fails): C = 1, 3 (the few-channel kernel), 23,
@@ -1556,7 +1704,8 @@ def k2_edge_checks(dev, rng):
     from device memory); a grid wholly out of range; bf16 textures. Then the
     autograd route: a sample whose inputs want a gradient records the
     kernel's backward, one under no_grad does not. Returns the largest
-    float32 error."""
+    float32 error. ``cases`` (default K2_EDGE_CASES) are (F, H, W, C, tp_sz,
+    Ho, Wo, kind, dtype) rows; the autograd route runs with the default."""
     import torch
     from waldo_tpu_torch.ops import get_grid
     from waldo_tpu_torch.ops.grid_sample import (FWD_FEW_C, _grid_sample_kernel,
@@ -1564,20 +1713,8 @@ def k2_edge_checks(dev, rng):
     from waldo_tpu_torch.ops.kernels import GRID_SAMPLE
 
     worst = 0.0
-    for f, h, w, c, tp, ho, wo, kind, dtype in (
-            (2, 37, 52, 1, 3, 29, 45, "smooth", torch.float32),
-            (2, 37, 53, 3, 1, 40, 37, "smooth", torch.float32),
-            (2, 37, 52, 3, 3, 16, 48, "smooth", torch.float32),
-            (3, 40, 48, 23, 1, 45, 61, "smooth", torch.float32),
-            (2, 31, 45, 23, 3, 19, 70, "smooth", torch.float32),
-            (2, 33, 64, 32, 3, 37, 29, "smooth", torch.float32),
-            (2, 64, 96, 23, 3, 64, 96, "shrink1.5", torch.float32),
-            (2, 64, 96, 23, 1, 64, 96, "shrink3", torch.float32),
-            (2, 200, 256, 23, 1, 33, 40, "shrink6", torch.float32),
-            (2, 37, 52, 23, 3, 20, 30, "out_of_range", torch.float32),
-            (2, 37, 52, 23, 3, 29, 45, "smooth", torch.bfloat16),
-            (2, 37, 53, 3, 1, 29, 45, "smooth", torch.bfloat16),
-            (2, 64, 96, 23, 1, 64, 96, "shrink3", torch.bfloat16)):
+    for f, h, w, c, tp, ho, wo, kind, dtype in (K2_EDGE_CASES if cases is None else cases):
+        dtype = getattr(torch, dtype)
         img, grid = k2_inputs(rng, f, h, w, c, tp, ho, wo, dev, dtype)
         if kind != "smooth":
             base = torch.as_tensor(get_grid(ho, wo), device=dev)
@@ -1608,6 +1745,8 @@ def k2_edge_checks(dev, rng):
         check(kind != "shrink6" or unstaged > 0, f"{label}: every band was staged")
         if dtype == torch.float32:
             worst = max(worst, e)
+    if cases is not None:
+        return worst
     img, grid = k2_inputs(rng, 2, 37, 52, 23, 3, 29, 45, dev)
     grid.requires_grad_()
     out = _grid_sample_kernel(img, grid, 3)
@@ -1636,7 +1775,7 @@ def k2_fwd_study(dev, card_name):
     from waldo_tpu_torch.ops.kernels import grid_sample_cuda
 
     log("== K2 forward on its edge cases")
-    k2_edge_checks(dev, np.random.RandomState(10))
+    k2_edge_checks(dev, np.random.RandomState(10), K2_EDGE_CASES + K2_KITTI_EDGE_CASES)
     rng = np.random.RandomState(4)
     log("== K2 forward at every row's shapes, dense inputs")
     rows, extra = [], {}
@@ -2762,10 +2901,10 @@ def restored_equal(tr, lvd_dir):
 
 def run_and_check(tr, nets, n, label):
     """Trainer.run(n) of modes that train ``nets`` ({net: the synthesizer's
-    attribute}) against the frozen LVD teacher: no skipped step, every
-    parameter of the nets moved, none of LVD's, no gradient on LVD, and the
-    "latest" slots of every net restore equal. Returns (seconds, launches,
-    launches by key)."""
+    attribute}), against the frozen LVD teacher unless LVD ("pe") is among
+    them: no skipped step, every parameter of the nets moved, none of the
+    teacher's, no gradient on it, and the "latest" slots of every net
+    restore equal. Returns (seconds, launches, launches by key)."""
     import torch
     from waldo_tpu_torch.convert import to_jax
     from waldo_tpu_torch.ops.kernels import reset_launches
@@ -2793,12 +2932,13 @@ def run_and_check(tr, nets, n, label):
         log(f"{len(before[net]) - len(unmoved)} of {len(before[net])} {attr} parameter tensors "
             f"changed")
         check(not unmoved, f"{attr} parameters that did not change: {unmoved}")
-    lvd_moved = [k for (k, p), b in zip(tr.syn.lvd.named_parameters(), lvd_before)
-                 if not torch.equal(p, b)]
-    log(f"{len(lvd_moved)} of {len(lvd_before)} LVD parameter tensors changed")
-    check(not lvd_moved and all(p.grad is None for p in tr.syn.lvd.parameters()),
-          f"the frozen LVD teacher changed or holds gradients: {lvd_moved}")
-    for label_ in ["pe"] + list(nets):
+    if "pe" not in nets:
+        lvd_moved = [k for (k, p), b in zip(tr.syn.lvd.named_parameters(), lvd_before)
+                     if not torch.equal(p, b)]
+        log(f"{len(lvd_moved)} of {len(lvd_before)} LVD parameter tensors changed")
+        check(not lvd_moved and all(p.grad is None for p in tr.syn.lvd.parameters()),
+              f"the frozen LVD teacher changed or holds gradients: {lvd_moved}")
+    for label_ in dict.fromkeys(["pe"] + list(nets)):
         now = _flatten(to_jax(tr.syn)[label_])
         back = _flatten(tr.ckpt.restore(label_, to_jax(tr.syn)[label_], "latest", strict=True))
         check(all(np.array_equal(now[k], back[k]) for k in now),
@@ -3336,21 +3476,21 @@ def run_test_cli(flags, label):
             mat_inputs)
 
 
-def check_eval_launches(label, launches, by_key, n, k3=0, mat_samples=None):
-    """n predicts' strict launch counts: K1 with its ghost mask at N=56 and
-    N=40, K2 at N=56 and N=40 (and in batch mode once for each MAT warp in
-    its envelope, by rows), the pre-pass twice, bias_act k3 times, no
-    training kernel."""
+def check_eval_launches(label, launches, by_key, n, k3=0, mat_samples=None, rows=(56, 40)):
+    """n predicts' strict launch counts: K1 with its ghost mask and K2 at
+    each of the two row counts ``rows`` (Cityscapes' 14 frames: 56 and 40),
+    K2 in batch mode once for each MAT warp in its envelope, by rows, the
+    pre-pass twice, bias_act k3 times, no training kernel."""
     import collections
 
-    k2 = collections.Counter({56: n, 40: n}) + collections.Counter(mat_samples or {})
-    check(by_key["warp_alpha_ctx"] == {(56, True): n, (40, True): n}
+    k2 = collections.Counter({r: n for r in rows}) + collections.Counter(mat_samples or {})
+    check(by_key["warp_alpha_ctx"] == {(r, True): n for r in rows}
           and by_key["grid_sample"] == dict(k2) and by_key["plane_boxes"] == {4: 2 * n}
           and launches["bias_act"] == k3
           and not any(launches[k] for k in ("grid_sample_per_channel", "grid_sample_bwd",
                                             "grid_sample_per_channel_bwd")),
-          f"{label}: expected per predict K1 with its ghost mask at N=56 and N=40, K2 at N=56 "
-          f"and N=40 and the pre-pass twice ({n} predicts, {k3} bias_act launches), got "
+          f"{label}: expected per predict K1 with its ghost mask and K2 at N={rows[0]} and "
+          f"N={rows[1]} and the pre-pass twice ({n} predicts, {k3} bias_act launches), got "
           f"{launches} by key {by_key}")
 
 
@@ -3393,17 +3533,20 @@ def check_dumps(cfg, ev, n):
         f"through the {ev.dump_format} round trip")
 
 
-def eval_kernel_rows(dev, card_name, launches, by_key, k1_seen, k2_seen):
-    """K1 with its ghost mask, K2 and the pre-pass at test.sh's 512x1024
-    load, on the inputs one predict handed them (emptying the two lists)
-    and on dense inputs: each against its plain version and timed beside
-    its bound (K2 also beside F.grid_sample), with the share of zero
-    samples in its inputs."""
+def eval_kernel_rows(dev, card_name, launches, by_key, k1_seen, k2_seen, script="test.sh",
+                     h=512, w=1024, tps=(14, 10), c_ctx=23):
+    """K1 with its ghost mask, K2 and the pre-pass at an inference script's
+    load (test.sh's 512x1024 by default), on the inputs one predict handed
+    them (emptying the two lists) and on dense inputs (4 context frames, 17
+    layers, ``tps`` predicted rows a frame, ``c_ctx`` context channels):
+    each against its plain version and timed beside its bound (K2 also
+    beside F.grid_sample), with the share of zero samples in its inputs."""
     import torch
     from waldo_tpu_torch.ops.grid_sample import grid_sample_ctx_plain
     from waldo_tpu_torch.ops.kernels import grid_sample_cuda
 
     rows, shares = [], []
+    size = f"{h}x{w}"
 
     def k2_check(img, grid, tp, what):
         got = grid_sample_cuda(img, grid, tp)
@@ -3419,45 +3562,45 @@ def eval_kernel_rows(dev, card_name, launches, by_key, k1_seen, k2_seen):
     while k1_seen:
         a, g, o, io, tp, tcp = k1_seen.pop(0)
         n = g.shape[0]
-        err = k1_check(a, g, o, io, tp, tcp, "test.sh's")
-        shares.append(dict(k1_input_shares(a, g, io, tp, f"warp_alpha_ctx N={n} on test.sh's "
-                                                         f"inputs"), inputs="test.sh"))
-        rows.append(k1_row(card_name, f"warp_alpha_ctx N={n} is_obj 512x1024 test.sh inputs",
+        err = k1_check(a, g, o, io, tp, tcp, f"{script}'s")
+        shares.append(dict(k1_input_shares(a, g, io, tp, f"warp_alpha_ctx N={n} on {script}'s "
+                                                         f"inputs"), inputs=script))
+        rows.append(k1_row(card_name, f"warp_alpha_ctx N={n} is_obj {size} {script} inputs",
                            a, g, o, io, tp, tcp, by_key["warp_alpha_ctx"][n, True], err))
         if not k1_seen:
-            rows.append(plane_boxes_row(card_name, "plane_boxes 4x512x1024x17 test.sh inputs",
-                                        a, launches["plane_boxes"]))
+            rows.append(plane_boxes_row(card_name, f"plane_boxes {'x'.join(map(str, a.shape))} "
+                                                   f"{script} inputs", a, launches["plane_boxes"]))
         del a, g, o, io
         torch.cuda.empty_cache()
     while k2_seen:
         img, grid, tp = k2_seen.pop(0)
         n = grid.shape[0]
-        err = k2_check(img, grid, tp, "test.sh's inputs")
-        rows.append(k2_row(card_name, f"grid_sample_ctx N={n} 512x1024 test.sh inputs", img,
+        err = k2_check(img, grid, tp, f"{script}'s inputs")
+        rows.append(k2_row(card_name, f"grid_sample_ctx N={n} {size} {script} inputs", img,
                            grid, tp, by_key["grid_sample"][n], err))
         del img, grid
         torch.cuda.empty_cache()
 
     rng = np.random.RandomState(3)
-    f, h, w, c, tc = 4, 512, 1024, 17, 4
-    for tp in (14, 10):
+    f, c, tc = 4, 17, 4
+    for tp in tps:
         n = f * tp
         a, g, o, io = k1_inputs(rng, f, h, w, c, tp, tc, True, dev)
-        err = k1_check(a, g, o, io, tp, tc * tp, "dense HD")
-        shares.append(dict(k1_input_shares(a, g, io, tp, f"warp_alpha_ctx N={n} on dense HD "
+        err = k1_check(a, g, o, io, tp, tc * tp, f"dense {size}")
+        shares.append(dict(k1_input_shares(a, g, io, tp, f"warp_alpha_ctx N={n} on dense {size} "
                                                          f"inputs"), inputs="dense"))
-        rows.append(k1_row(card_name, f"warp_alpha_ctx N={n} is_obj 512x1024", a, g, o, io, tp,
+        rows.append(k1_row(card_name, f"warp_alpha_ctx N={n} is_obj {size}", a, g, o, io, tp,
                            tc * tp, by_key["warp_alpha_ctx"][n, True], err))
         del a, g, o, io
         torch.cuda.empty_cache()
-        img, grid = k2_inputs(rng, f, h, w, 23, tp, h, w, dev)
-        err = k2_check(img, grid, tp, "dense HD inputs")
-        rows.append(k2_row(card_name, f"grid_sample_ctx N={n} 512x1024", img, grid, tp,
+        img, grid = k2_inputs(rng, f, h, w, c_ctx, tp, h, w, dev)
+        err = k2_check(img, grid, tp, f"dense {size} inputs")
+        rows.append(k2_row(card_name, f"grid_sample_ctx N={n} {size}", img, grid, tp,
                            by_key["grid_sample"][n], err))
         del img, grid
         torch.cuda.empty_cache()
     tex = sparse_alpha(rng, f, h, w, c, dev)
-    rows.append(plane_boxes_row(card_name, "plane_boxes 4x512x1024x17", tex,
+    rows.append(plane_boxes_row(card_name, f"plane_boxes {f}x{h}x{w}x{c}", tex,
                                 launches["plane_boxes"]))
     del tex
     torch.cuda.empty_cache()
@@ -3465,9 +3608,10 @@ def eval_kernel_rows(dev, card_name, launches, by_key, k1_seen, k2_seen):
     return rows, shares
 
 
-def mat_warp_rows(card_name, mat_inputs):
-    """K2's batch mode on the MAT post-processing's whole-frame warps of
-    test_mat.sh at 512x1024, one row for each shape the CLI run handed it:
+def mat_warp_rows(card_name, mat_inputs, script="test_mat.sh"):
+    """K2's batch mode on the MAT post-processing's whole-frame warps of a
+    MAT script (test_mat.sh at 512x1024), one row for each shape the CLI run
+    handed it:
     on the first inputs of that shape, against its plain version, timed
     (k2_row: a call and on the device, beside the first-design yardstick and one
     F.grid_sample call) beside its bound (the texels the grid's taps
@@ -3485,17 +3629,17 @@ def mat_warp_rows(card_name, mat_inputs):
             want = grid_sample_plain(img, grid)
             err = float((out.float() - want.float()).abs().max())
             zero = float((want == 0).float().mean())
-            log(f"K2 batch mode on test_mat.sh's MAT warp: texture {img_shape} {dtype}, grid "
+            log(f"K2 batch mode on {script}'s MAT warp: texture {img_shape} {dtype}, grid "
                 f"{grid_shape}, {n} launches in the run; max|err| {err:.3g} (tol {tol}); "
                 f"{zero:.4g} of the samples are 0")
             check(bool(torch.isfinite(out).all()) and err <= tol,
-                  f"K2 batch mode on test_mat.sh's MAT warp {img_shape} {dtype}: {err}")
+                  f"K2 batch mode on {script}'s MAT warp {img_shape} {dtype}: {err}")
             seen.append({"texture": img_shape, "grid": grid_shape, "dtype": dtype,
                          "launches": n, "max_abs_err": err, "zero_share": zero})
             del out, want
             texels = tapped_texels(grid, h, w)
             rows.append(k2_row(card_name, f"grid_sample batch mode MAT warp {f}x{h}x{w} C={c} "
-                                          f"{dtype.replace('torch.', '')} test_mat.sh inputs",
+                                          f"{dtype.replace('torch.', '')} {script} inputs",
                                img, grid, 1, n, err, texels,
                                texels_read_share=texels / (f * h * w),
                                host_split=k2_host_split(img, grid)))
@@ -3613,26 +3757,35 @@ def fid_fvd_check(dev, root, tag, vid_len, ctx_len):
     return res
 
 
-def small_eval_check(dev, root):
+def small_eval_check(dev, root, kitti=False):
     """A small float32 evaluator on the card against the same evaluator on
     the CPU: small_cfg() on a Cityscapes-format tree at 64x128 (flows at
-    32x64), its two clips, the same seeded weights on both sides. The
-    videos of a clip agree within the float32 predict tolerance (1e-3) and
-    so do the metrics (L1 and SSIM absolute, PSNR relative)."""
+    32x64), or with ``kitti`` small_kitti_cfg() on a KITTI-format tree at
+    64x208 (flows at 32x104), its two clips, the same seeded weights on both
+    sides. The videos of a clip agree within the float32 predict tolerance
+    (1e-3; at KITTI's geometry on all but STEEP_SHARE of the elements,
+    steep_check) and so do the metrics (L1 and SSIM absolute, PSNR
+    relative)."""
     import torch
     from waldo_tpu_torch.data import create_dataset
     from waldo_tpu_torch.train import Evaluator
 
-    data_root = os.path.join(root, "cityscapes_small")
-    write_cityscapes_tree(data_root, 64, 32, 2, num_cls=6)
+    name = "kitti_small" if kitti else "cityscapes_small"
+    data_root = os.path.join(root, name)
+    if kitti:
+        write_kitti_tree(data_root, (64,), 32, {"test": (2, 12)})
+    else:
+        write_cityscapes_tree(data_root, 64, 32, 2, num_cls=6)
     outs = []
     for d in (dev, torch.device("cpu")):
-        cfg = small_cfg()
-        cfg.data.dataset, cfg.data.dataroot, cfg.data.eval_phase = "cityscapes", data_root, "test"
+        cfg = small_kitti_cfg() if kitti else small_cfg()
+        cfg.data.dataset, cfg.data.dataroot, cfg.data.eval_phase = (
+            "kitti" if kitti else "cityscapes", data_root, "test")
         cfg.data.skip_first, cfg.data.num_workers = True, 2
+        cfg.data.load_all = kitti
         cfg.true_dim, cfg.flow_dim = 64, 32
         cfg.model.restrict_to_ctx = True
-        cfg.save_path, cfg.name, cfg.datetime = root, "small_eval", f"small_{d.type}"
+        cfg.save_path, cfg.name, cfg.datetime = root, name, f"small_{d.type}"
         ev = Evaluator(cfg, device=d)
         metrics = ev.run(dump=False)
         clip = create_dataset(cfg, phase="test")[0]
@@ -3641,13 +3794,147 @@ def small_eval_check(dev, root):
         outs.append((metrics, {k: v.float().cpu() for k, v in ev.predict(batch).items()}))
     (m_card, v_card), (m_cpu, v_cpu) = outs
     err = max(float((v_card[k] - v_cpu[k]).abs().max()) for k in v_cpu)
+    share = max(float(((v_card[k] - v_cpu[k]).abs() > 1e-3).float().mean()) for k in v_cpu)
     m_err = {k: abs(m_card[k] - m_cpu[k]) / (abs(m_cpu[k]) if k.startswith("psnr") else 1.0)
              for k in m_cpu}
-    log(f"small float32 evaluator (2 clips), card vs CPU: videos max|err| {err:.3g} (tol 1e-3); "
-        f"metrics max diff {max(m_err.values()):.3g} (tol 1e-3; PSNR relative)")
-    check(set(m_card) == set(m_cpu) and err <= 1e-3 and max(m_err.values()) <= 1e-3,
-          f"the small evaluator on the card disagrees with the CPU: {err}, {m_err}")
-    return {"video_err": err, "metric_errs": m_err, "metrics_card": m_card, "metrics_cpu": m_cpu}
+    tol = (f"at most {STEEP_SHARE} of the elements beyond 1e-3, all within {STEEP_ATOL}"
+           if kitti else "tol 1e-3")
+    log(f"small float32 {'KITTI ' if kitti else ''}evaluator (2 clips), card vs CPU: videos "
+        f"max|err| {err:.3g}, {share:.3g} of the elements beyond 1e-3 ({tol}); metrics max "
+        f"diff {max(m_err.values()):.3g} (tol 1e-3; PSNR relative)")
+    videos_ok = (share <= STEEP_SHARE and err <= STEEP_ATOL) if kitti else err <= 1e-3
+    check(set(m_card) == set(m_cpu) and videos_ok and max(m_err.values()) <= 1e-3,
+          f"the small evaluator on the card disagrees with the CPU: {err}, {share}, {m_err}")
+    return {"video_err": err, "video_share_over_1e3": share, "metric_errs": m_err,
+            "metrics_card": m_card, "metrics_cpu": m_cpu}
+
+
+def test_cli_check(flags, cfg, runs, n, label, rows=(56, 40)):
+    """An inference script's flags through the test CLI (run_test_cli) on n
+    clips, restoring the three nets from ``runs`` (the LVD, FLP and WIF
+    runs' dirs): strict launch counts at the predict's two row counts
+    ``rows``, no MAT warp, the slots restored equal, the metrics' keys, the
+    dumps (check_dumps). Returns (the results, the evaluator)."""
+    from waldo_tpu_torch.convert import to_jax
+    from waldo_tpu_torch.train import CheckpointManager
+    from waldo_tpu_torch.train.checkpoint import _flatten
+
+    metrics, ev, run_s, launches, by_key, peak_gb, mat_samples, _ = run_test_cli(flags, label)
+    check(not mat_samples, f"{label} ran a MAT warp: {mat_samples}")
+    check_eval_launches(label, launches, by_key, n, rows=rows)
+    trees = to_jax(ev.syn)
+    for net, key in (("pe", "lvd"), ("pg", "flp"), ("ii", "wif")):
+        want = _flatten(CheckpointManager(runs[key]).restore(net, trees[net], "latest",
+                                                             strict=True))
+        now = _flatten(trees[net])
+        check(set(now) == set(want) and all(np.array_equal(now[k], want[k]) for k in want),
+              f"{label}: the evaluator's {net} did not restore equal to the {key} run's slot")
+    log(f"{label}: pe, pg and ii restored equal to the LVD, FLP and WIF runs' latest slots")
+    want_keys = {f"{s}_{k}" for s in ("l1", "psnr", "ssim")
+                 for k in ("pred", "rec", "inp_pred", "inp_rec")}
+    check(set(metrics) == want_keys, f"{label}: metrics {sorted(metrics)}")
+    log(f"{label} metrics: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
+    check_dumps(cfg, ev, n)
+    return {"metrics": metrics, "run_s": run_s, "launches": launches, "launches_by_key": by_key,
+            "peak_gb": peak_gb, "dump_format": ev.dump_format,
+            "iterations": eval_timing(ev)}, ev
+
+
+def eval_predict(dev, ev, cfg, label, rows, profile_dir=None, prof_label="_eval_iteration"):
+    """One predict of the evaluator ``ev`` at B=1 on the first test clip:
+    strict launch counts, ms per call (CUDA events over 3), predicted
+    frames/s and peak memory; under --profile one evaluator iteration
+    traced. Returns (the results, the fused warp's and the shared-grid
+    sample's inputs of one predict, capture_sample_inputs')."""
+    import torch
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.ops.kernels import reset_launches
+
+    clip = create_dataset(cfg, phase="test")[0]
+    batch = {k: torch.from_numpy(v[None]).to(dev) for k, v in clip.items()
+             if isinstance(v, np.ndarray)}
+    ev.predict(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ev.predict(batch)
+    torch.cuda.synchronize()
+    launches, by_key = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_eval_launches(f"one {label} predict", launches, by_key, 1, rows=rows)
+    ms = cuda_time(lambda: ev.predict(batch), 3, warmup=1)
+    fps = (cfg.data.vid_len - cfg.model.ctx_len) / (ms / 1e3)
+    log(f"{label} predict at {cfg.load_dim}x{int(cfg.load_dim * cfg.aspect_ratio)}, B=1: "
+        f"{ms:.2f} ms per call over 3 -> {fps:.3f} predicted frames/s; peak memory {peak:.2f} GB")
+    res = {"ms": ms, "fps": fps, "peak_gb": peak, "launches": launches}
+    if profile_dir:  # one iteration's work on a batch the loader has made
+        np_batch = {k: v[None] for k, v in clip.items() if isinstance(v, np.ndarray)}
+        res["profile_iteration"] = phase_profile(lambda: ev.step(0, np_batch, {}), profile_dir,
+                                                 prof_label)
+    k1_seen, k2_seen = capture_sample_inputs(lambda: ev.predict(batch))
+    return res, k1_seen, k2_seen
+
+
+def metrics_cli_check(root, cfg):
+    """The metrics CLI (waldo_tpu_torch.eval.metrics TAG T CTX) on the dumps
+    of ``cfg``'s evaluator run, without LPIPS weights: the warning, ssim and
+    ms-ssim, finite, one cumulative line of each a predicted frame."""
+    import contextlib
+    import io
+
+    from waldo_tpu_torch.eval import metrics as metrics_cli
+
+    tag = os.path.basename(cfg.result_path)
+    t, ctx = cfg.data.vid_len, cfg.model.ctx_len
+    old_env = os.environ.get("WALDO_LPIPS_WEIGHTS")
+    os.environ["WALDO_LPIPS_WEIGHTS"] = os.path.join(root, "no_lpips")
+    err, out = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+            cum = metrics_cli.main([tag, str(t), str(ctx),
+                                    "--results_root", os.path.join(root, "results")])
+    finally:
+        if old_env is None:
+            os.environ.pop("WALDO_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["WALDO_LPIPS_WEIGHTS"] = old_env
+    metrics_s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    log(f"metrics CLI on {tag} ({metrics_s:.1f} s): "
+        + " | ".join(ln for ln in lines if "cum" in ln and f":{t - 1}]" in ln))
+    check("falling back to ssim" in err.getvalue(), "no LPIPS fallback warning")
+    check(sorted(cum) == ["cum_msssim", "cum_ssim"] and all(np.isfinite(v) for v in cum.values())
+          and sum("[cum " in ln for ln in lines) == 2 * (t - ctx),
+          f"the metrics CLI's cumulative lines: {cum}")
+    return {"cum": cum, "seconds": metrics_s}
+
+
+def test_mat_cli_check(flags, cfg, n, mat_per_forward, label, rows=(56, 40)):
+    """A MAT inference script's flags through the test CLI on n clips:
+    the MAT forwards three crops at a time, strict launch counts (bias_act
+    once per MAT layer per forward, K2's batch mode once for each MAT warp
+    in its envelope), every inp_pred_vid dump; ms per clip. Returns (the
+    results, the first inputs of each MAT warp shape, run_test_cli's)."""
+    metrics, ev, run_s, launches, by_key, peak_gb, mat_samples, mat_inputs = run_test_cli(
+        flags, label)
+    forwards = ev.inpainter.calls
+    check(forwards > 0 and forwards % 3 == 0, f"{label}: {forwards} MAT forwards")
+    # at these loads the MAT post-processing's warps of whole frames (or of
+    # some of them) fall in the sampler kernel's envelope
+    check(sum(mat_samples.values()) > 0, f"{label}: no MAT warp went to the sampler kernel")
+    check_eval_launches(label, launches, by_key, n, k3=mat_per_forward * forwards,
+                        mat_samples=mat_samples, rows=rows)
+    names = sorted(os.listdir(os.path.join(cfg.result_path, "inp_pred_vid")))
+    check(len(names) == n, f"{label}: inp_pred_vid dumps {names}")
+    clip_ms = [1e3 * t["predict_s"] for t in ev.iteration_times]
+    log(f"{label}: {forwards} MAT forwards, bias_act {launches['bias_act']} launches "
+        f"({mat_per_forward} a forward), MAT warps on the sampler kernel by rows "
+        f"{mat_samples}; ms per clip (predict + MAT + metrics + copy back) "
+        + ", ".join(f"{t:.1f}" for t in clip_ms))
+    return {"metrics": metrics, "run_s": run_s, "launches": launches, "launches_by_key": by_key,
+            "peak_gb": peak_gb, "mat_forwards": forwards, "mat_kernel_samples": mat_samples,
+            "clip_ms": clip_ms, "iterations": eval_timing(ev)}, mat_inputs
 
 
 def phase_eval(dev, card_name, root, runs, mat_per_forward, profile_dir=None):
@@ -3661,17 +3948,8 @@ def phase_eval(dev, card_name, root, runs, mat_per_forward, profile_dir=None):
     clip; the metrics CLI on the dumps; K1 with its ghost mask, K2 and the
     pre-pass at 512x1024 against their plain versions and timed; a small
     evaluator card vs CPU."""
-    import contextlib
-    import io
-
     import torch
     from waldo_tpu_torch.config import parse_cli
-    from waldo_tpu_torch.convert import to_jax
-    from waldo_tpu_torch.data import create_dataset
-    from waldo_tpu_torch.eval import metrics as metrics_cli
-    from waldo_tpu_torch.ops.kernels import reset_launches
-    from waldo_tpu_torch.train import CheckpointManager
-    from waldo_tpu_torch.train.checkpoint import _flatten
 
     log(f"== 10. {TEST_SCRIPT} and {TEST_MAT_SCRIPT} through the test CLI on a "
         f"Cityscapes-format tree")
@@ -3700,81 +3978,17 @@ def phase_eval(dev, card_name, root, runs, mat_per_forward, profile_dir=None):
                                                                  runs["wif"]),
           "the parsed test.sh config is not the expected one")
 
-    metrics, ev, run_s, launches, by_key, peak_gb, mat_samples, _ = run_test_cli(flags,
-                                                                                 "test.sh")
-    check(not mat_samples, f"test.sh ran a MAT warp: {mat_samples}")
-    check_eval_launches("test.sh", launches, by_key, EVAL_CLIPS)
-    trees = to_jax(ev.syn)
-    for label, key in (("pe", "lvd"), ("pg", "flp"), ("ii", "wif")):
-        want = _flatten(CheckpointManager(runs[key]).restore(label, trees[label], "latest",
-                                                             strict=True))
-        now = _flatten(trees[label])
-        check(set(now) == set(want) and all(np.array_equal(now[k], want[k]) for k in want),
-              f"the evaluator's {label} did not restore equal to the {key} run's slot")
-    log("pe, pg and ii restored equal to the LVD, FLP and WIF runs' latest slots")
-    want_keys = {f"{s}_{k}" for s in ("l1", "psnr", "ssim")
-                 for k in ("pred", "rec", "inp_pred", "inp_rec")}
-    check(set(metrics) == want_keys, f"metrics {sorted(metrics)}")
-    log("metrics: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items())))
-    check_dumps(cfg, ev, EVAL_CLIPS)
-    res["test_sh"] = {"metrics": metrics, "run_s": run_s, "launches": launches,
-                      "launches_by_key": by_key, "peak_gb": peak_gb,
-                      "dump_format": ev.dump_format, "iterations": eval_timing(ev)}
-
-    # one predict at B=1 on the first clip: strict counts, CUDA-event time
-    clip = create_dataset(cfg, phase="test")[0]
-    batch = {k: torch.from_numpy(v[None]).to(dev) for k, v in clip.items()
-             if isinstance(v, np.ndarray)}
-    ev.predict(batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    ev.predict(batch)
-    torch.cuda.synchronize()
-    p_launches, p_by_key = read_launches()
-    p_peak = torch.cuda.max_memory_allocated() / 1e9
-    check_eval_launches("one test.sh predict", p_launches, p_by_key, 1)
-    ms = cuda_time(lambda: ev.predict(batch), 3, warmup=1)
-    fps = (cfg.data.vid_len - m.ctx_len) / (ms / 1e3)
-    log(f"test.sh predict at 512x1024, B=1: {ms:.2f} ms per call over 3 -> {fps:.3f} predicted "
-        f"frames/s; peak memory {p_peak:.2f} GB")
-    res["predict"] = {"ms": ms, "fps": fps, "peak_gb": p_peak, "launches": p_launches}
-    if profile_dir:  # one iteration's work on a batch the loader has made
-        np_batch = {k: v[None] for k, v in clip.items() if isinstance(v, np.ndarray)}
-        res["profile_iteration"] = phase_profile(lambda: ev.step(0, np_batch, {}), profile_dir,
-                                                 "_eval_iteration")
-    k1_seen, k2_seen = capture_sample_inputs(lambda: ev.predict(batch))
-    del ev, batch
+    res["test_sh"], ev = test_cli_check(flags, cfg, runs, EVAL_CLIPS, "test.sh")
+    res["predict"], k1_seen, k2_seen = eval_predict(dev, ev, cfg, "test.sh", (56, 40),
+                                                    profile_dir)
+    del ev
     torch.cuda.empty_cache()
-
-    # the metrics CLI on the dumps; no LPIPS weights: the warning and ssim
     tag = os.path.basename(cfg.result_path)
-    old_env = os.environ.get("WALDO_LPIPS_WEIGHTS")
-    os.environ["WALDO_LPIPS_WEIGHTS"] = os.path.join(root, "no_lpips")
-    err, out = io.StringIO(), io.StringIO()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
-            cum = metrics_cli.main([tag, str(cfg.data.vid_len), str(m.ctx_len),
-                                    "--results_root", os.path.join(root, "results")])
-    finally:
-        if old_env is None:
-            os.environ.pop("WALDO_LPIPS_WEIGHTS", None)
-        else:
-            os.environ["WALDO_LPIPS_WEIGHTS"] = old_env
-    metrics_s = time.perf_counter() - t0
-    lines = out.getvalue().splitlines()
-    log(f"metrics CLI ({metrics_s:.1f} s): " + " | ".join(ln for ln in lines if "cum" in ln
-                                                          and ":13]" in ln))
-    check("falling back to ssim" in err.getvalue(), "no LPIPS fallback warning")
-    check(sorted(cum) == ["cum_msssim", "cum_ssim"] and all(np.isfinite(v) for v in cum.values())
-          and sum("[cum " in ln for ln in lines) == 2 * (cfg.data.vid_len - m.ctx_len),
-          f"the metrics CLI's cumulative lines: {cum}")
-    res["metrics_cli"] = {"cum": cum, "seconds": metrics_s}
-
+    res["metrics_cli"] = metrics_cli_check(root, cfg)
     res["fid_fvd"] = fid_fvd_check(dev, root, tag, cfg.data.vid_len, m.ctx_len)
 
-    rows, res["sample_shares"] = eval_kernel_rows(dev, card_name, launches, by_key, k1_seen,
+    rows, res["sample_shares"] = eval_kernel_rows(dev, card_name, res["test_sh"]["launches"],
+                                                  res["test_sh"]["launches_by_key"], k1_seen,
                                                   k2_seen)
     res["small_eval"] = small_eval_check(dev, root)
 
@@ -3788,29 +4002,8 @@ def phase_eval(dev, card_name, root, runs, mat_per_forward, profile_dir=None):
           and cfg_mat.model.inpainter_path == "" and cfg_mat.load_dim == 512
           and cfg_mat.max_batch_eval_vid == EVAL_MAT_CLIPS,
           "the parsed test_mat.sh config is not the expected one")
-    metrics, ev, run_s, launches, by_key, peak_gb, mat_samples, mat_inputs = run_test_cli(
-        mat_flags, "test_mat.sh")
-    forwards = ev.inpainter.calls
-    check(forwards > 0 and forwards % 3 == 0, f"{forwards} MAT forwards")
-    # at this load the MAT post-processing's warps of whole frames fall in
-    # the sampler kernel's envelope (at phase 5's 256x512 they do not)
-    check(sum(mat_samples.values()) > 0, "no MAT warp went to the sampler kernel")
-    check_eval_launches("test_mat.sh", launches, by_key, EVAL_MAT_CLIPS,
-                        k3=mat_per_forward * forwards, mat_samples=mat_samples)
-    names = sorted(os.listdir(os.path.join(cfg_mat.result_path, "inp_pred_vid")))
-    check(len(names) == EVAL_MAT_CLIPS, f"inp_pred_vid dumps {names}")
-    clip_ms = [1e3 * t["predict_s"] for t in ev.iteration_times]
-    log(f"test_mat.sh: {forwards} MAT forwards, bias_act {launches['bias_act']} launches "
-        f"({mat_per_forward} a forward), MAT warps on the sampler kernel by rows "
-        f"{mat_samples}; ms per clip (predict + MAT + metrics + copy back) "
-        + ", ".join(f"{t:.1f}" for t in clip_ms))
-    res["test_mat_sh"] = {"metrics": metrics, "run_s": run_s, "launches": launches,
-                          "launches_by_key": by_key, "peak_gb": peak_gb,
-                          "mat_forwards": forwards, "mat_kernel_samples": mat_samples,
-                          "clip_ms": clip_ms,
-                          "iterations": eval_timing(ev)}
-    del ev
-    torch.cuda.empty_cache()
+    res["test_mat_sh"], mat_inputs = test_mat_cli_check(mat_flags, cfg_mat, EVAL_MAT_CLIPS,
+                                                        mat_per_forward, "test_mat.sh")
     mat_rows, res["test_mat_sh"]["mat_warps"] = mat_warp_rows(card_name, mat_inputs)
     rows += mat_rows
     del mat_inputs
@@ -4042,8 +4235,9 @@ def dist_worker_ranks(out_dir, root, backend):
     train_lvd.sh's widths with the zero pose head on their rows of one fixed
     global batch: gloo with every rank on card 0, or NCCL with a card each.
     After each step the ranks hold rank 0's parameters against their own
-    (bitwise); then the step is timed. Rank 0 writes the losses, the
-    parameters, each rank's peak memory and the times."""
+    (bitwise); then the step is timed. Rank 0 writes the losses, the first
+    step's reduced gradients, the parameters and their names, each rank's
+    peak memory and the times."""
     import torch
     import torch.distributed as dist
     from waldo_tpu_torch.config import parse_cli
@@ -4058,6 +4252,7 @@ def dist_worker_ranks(out_dir, root, backend):
     cfg = parse_cli(dist_flags(root, "--s_pe_estimator_init_mode", "zero"))
     syn = Synthesizer(cfg, device=dev, seed=cfg.seed)
     st = NetState(syn.lvd, cfg.model)
+    grads = step_gradients(st)
     shard = mesh.BatchShard.of_rank(cfg.batch_size_vid // mesh.world_size())
     batch = {k: torch.from_numpy(v).to(dev) for k, v in fixed_rows(cfg, shard).items()
              if isinstance(v, np.ndarray)}
@@ -4091,7 +4286,8 @@ def dist_worker_ranks(out_dir, root, backend):
                                    "all_reduce_ms": reduce_ms})
     if mesh.is_main():
         torch.save({"backend": mesh.backend(), "world": mesh.world_size(), "equal": equal,
-                    "ranks": every, "params": params,
+                    "ranks": every, "params": params, "grads": grads[0],
+                    "names": [n for n, p in syn.lvd.named_parameters() if p.requires_grad],
                     "all_reduce_bytes": flat.numel() * flat.element_size()},
                    os.path.join(out_dir, f"ranks_{backend}.pt"))
     dist.barrier()
@@ -4100,7 +4296,8 @@ def dist_worker_ranks(out_dir, root, backend):
 
 def world1_reference(dev, root):
     """World 1 in this process: DIST_STEPS steps on the whole fixed batch,
-    the ranks' config and draws. Returns (losses, parameters)."""
+    the ranks' config and draws. Returns ((losses, parameters), the first
+    step's gradients)."""
     import torch
     from waldo_tpu_torch.config import parse_cli
     from waldo_tpu_torch.models import Synthesizer
@@ -4110,6 +4307,7 @@ def world1_reference(dev, root):
     cfg = parse_cli(dist_flags(root, "--s_pe_estimator_init_mode", "zero"))
     syn = Synthesizer(cfg, device=dev, seed=cfg.seed)
     st = NetState(syn.lvd, cfg.model)
+    grads = step_gradients(st)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in fixed_rows(cfg, BatchShard.whole(cfg.batch_size_vid)).items()
              if isinstance(v, np.ndarray)}
@@ -4124,20 +4322,17 @@ def world1_reference(dev, root):
     params = [p.detach().cpu() for p in st.params]
     del syn, st, batch
     torch.cuda.empty_cache()
-    return losses, params
+    return (losses, params), grads[0]
 
 
-def compare_ranks(got, want, label, steps=DIST_STEPS, strict=True):
+def compare_ranks(got, want, label, steps=DIST_STEPS):
     """The ranks' run against world 1: the ranks bitwise equal after each
-    step; the ranks' mean loss within 2e-4 relative of world 1's; each
-    parameter within 2 x 1e-4 x ``steps`` (4e-4 for two steps: what that
-    many Adam steps at lr 1e-4 can move one, so an element whose gradient
-    sits near 0 may take the other direction), and 99.9 % of each tensor's
-    elements within 2e-6 (tests/test_torch_train.py's tolerances for two
-    steps against JAX); with ``strict`` False only the ranks' equality is
-    held here, and the caller judges the numbers returned."""
+    step (checked here); the ranks' mean loss against world 1's, relative;
+    each parameter's largest difference, and the largest share of a
+    tensor's elements over 2e-6 (tests/test_torch_train.py's tolerance for
+    two steps against JAX), which within_adam_bound and within_world1_spread
+    judge."""
     w_losses, w_params = want
-    tol = 2e-4 * steps
     res = {"equal_after_each_step": got["equal"], "loss_rel_err": [], "ranks": got["ranks"]}
     for it in range(steps):
         mean = float(np.mean([r["losses"][it] for r in got["ranks"]]))
@@ -4157,17 +4352,48 @@ def compare_ranks(got, want, label, steps=DIST_STEPS, strict=True):
         log(f"{label}: tensors with more than 1e-3 of their elements over 2e-6 from world 1 "
             f"(name, shape, count, max|err|, max|world 1|): {off[:12]}")
     log(f"{label}: ranks bitwise equal after each step {got['equal']}; mean loss against world "
-        f"1 relative {['%.3g' % e for e in res['loss_rel_err']]} (tol 2e-4); parameters max|err| "
-        f"{worst:.3g} (tol {tol:.3g}), the largest share of a tensor's elements over 2e-6 "
-        f"{worst_share:.3g} (tol 1e-3)")
+        f"1 relative {['%.3g' % e for e in res['loss_rel_err']]}; parameters max|err| "
+        f"{worst:.3g}, the largest share of a tensor's elements over 2e-6 {worst_share:.3g}")
     for r in got["ranks"]:
         log(f"  rank {r['rank']} on {r['device']}: losses {['%.6f' % v for v in r['losses']]}, "
             f"peak {r['peak_gb']:.2f} GB, a step {r['step_ms']:.2f} ms, the {got['all_reduce_bytes']}"
             f"-byte all-reduce {r['all_reduce_ms']:.3f} ms")
     check(all(got["equal"]), f"{label}: the ranks' parameters differ")
-    check(not strict or (max(res["loss_rel_err"]) <= 2e-4 and worst <= tol
-                         and worst_share <= 1e-3), f"{label} disagrees with world 1")
     return res
+
+
+def world1_spread(w, w2, names, label, steps):
+    """World 1 run twice in this process (``w``, ``w2``: (losses,
+    parameters)): the card's own spread after ``steps`` Adam steps, as
+    compare_ranks reads it. The backward kernels' and cuDNN's atomics sum in
+    no fixed order, and Adam turns the last bits of a near-zero gradient
+    into a step of about lr."""
+    return compare_ranks({"equal": [True] * steps, "params": w2[1], "names": names,
+                          "ranks": [{"rank": 0, "device": "world 1 again", "losses": w2[0],
+                                     "peak_gb": 0.0, "step_ms": 0.0, "all_reduce_ms": 0.0}],
+                          "all_reduce_bytes": 0}, w, f"{label} world 1 twice", steps=steps)
+
+
+def within_adam_bound(cmp, label, steps):
+    """The ranks' run (compare_ranks' ``cmp``) held to world 1: the losses
+    within 2e-4 relative, each parameter within 2 x 1e-4 x ``steps`` (what
+    that many Adam steps at lr 1e-4 can move one, so an element whose
+    gradient sits near 0 may take the other direction)."""
+    check(max(cmp["loss_rel_err"]) <= 2e-4 and cmp["param_max_err"] <= 2e-4 * steps,
+          f"{label}: further from world 1 than the Adam bound (losses {cmp['loss_rel_err']}, "
+          f"tol 2e-4; parameters max|err| {cmp['param_max_err']:.3g}, tol {2e-4 * steps:.3g})")
+
+
+def within_world1_spread(cmp, spread, label):
+    """No tensor with a larger share of its elements over 2e-6 from world 1
+    than twice world 1's own spread (``spread``, world1_spread's), or 1e-3."""
+    tol = max(1e-3, 2 * spread["param_share_over_2e6"])
+    check(cmp["param_share_over_2e6"] <= tol,
+          f"{label}: further from world 1 than the card's own spread (share over 2e-6 "
+          f"{cmp['param_share_over_2e6']:.3g}, tol {tol:.3g})")
+    log(f"{label}: within the Adam bound and twice world 1's own spread (share over 2e-6 "
+        f"{cmp['param_share_over_2e6']:.3g} against world 1 twice's "
+        f"{spread['param_share_over_2e6']:.3g})")
 
 
 def phase_dist(dev, root):
@@ -4240,10 +4466,23 @@ def phase_dist(dev, root):
         f"{got['world']}")
     check(got["backend"] == "gloo" and got["world"] == 2, "the pair is not two gloo ranks")
     t0 = time.perf_counter()
-    want = world1_reference(dev, root)
+    want, w_grads = world1_reference(dev, root)
     log(f"world 1 in this process, B = {len(got['ranks']) * 4}: {time.perf_counter() - t0:.1f} s, "
         f"losses {['%.6f' % v for v in want[0]]}")
-    res["gloo_pair"] = compare_ranks(got, want, "gloo pair")
+    spread = world1_spread(want, world1_reference(dev, root)[0], got["names"], "phase 12",
+                           DIST_STEPS)
+
+    def held(got, label):
+        """The first step's reduced gradients per leaf, the losses and the
+        parameters against world 1, within the Adam bound and twice world
+        1's own spread."""
+        grad_err = gradients_close(got["grads"], w_grads, got["names"], label)
+        cmp = compare_ranks(got, want, label)
+        within_adam_bound(cmp, label, DIST_STEPS)
+        within_world1_spread(cmp, spread, label)
+        return dict(cmp, grad_err=grad_err, world1_spread=spread)
+
+    res["gloo_pair"] = held(got, "gloo pair")
     res["gloo_pair"]["seconds"] = secs
 
     # (c) NCCL across the cards
@@ -4252,7 +4491,7 @@ def phase_dist(dev, root):
         secs, out = torchrun(n, [here, "--dist-worker", "nccl-cards", "--dist-root", root],
                              f"torchrun NCCL over {n} cards")
         got = torch.load(os.path.join(out_dir, "ranks_nccl.pt"), weights_only=False)
-        res["nccl_cards"] = compare_ranks(got, want, f"NCCL over {n} cards")
+        res["nccl_cards"] = held(got, f"NCCL over {n} cards")
         res["nccl_cards"]["seconds"] = secs
     else:
         log("NCCL across cards: not run (this machine has one card)")
@@ -4542,8 +4781,9 @@ def seq_worker(out_dir, root, backend="gloo"):
     step's launches, bytes through the collectives (the step's gradient
     all-reduce apart from the token gathers) and token shards, the ranks'
     parameters against rank 0's (bitwise) after each step, the peak memory,
-    then the step timed. Rank 0 writes every rank's results and its
-    parameters."""
+    then the step timed. Rank 0 writes every rank's results, its parameters
+    before each step and after the last, and each step's reduced
+    gradients."""
     import torch
     import torch.distributed as dist
     from waldo_tpu_torch.config import parse_cli
@@ -4581,7 +4821,7 @@ def seq_worker(out_dir, root, backend="gloo"):
                                   batch=SEQ_BATCH if gloo else None))
         tr = Trainer(cfg, device=dev)
         st = tr.states[key]
-        kept = first_gradients(st)
+        kept, before = step_gradients(st, SEQ_STEPS), []
         grid = mesh.grid()
         batch = tr._to_device(fixed_rows(cfg, mesh.BatchShard.of_rank(
             cfg.batch_size_vid // grid.data_world)))
@@ -4593,6 +4833,8 @@ def seq_worker(out_dir, root, backend="gloo"):
             reset_launches()
             sites.clear()
             sent.update(gradients=0, tokens=0)
+            if mesh.is_main():
+                before.append([p.detach().cpu() for p in st.params])
             metrics = tr.step(mode, batch, it)
             torch.cuda.synchronize()
             r["launches"].append(read_launches()[0])
@@ -4610,7 +4852,7 @@ def seq_worker(out_dir, root, backend="gloo"):
             params[net] = [p.detach().cpu() for p in st.params]
             params[f"{net}_names"] = [n for n, p in tr.syn.nets()[key].named_parameters()
                                       if p.requires_grad]
-            params[f"{net}_grads"] = list(kept)
+            params[f"{net}_grads"], params[f"{net}_before"] = kept, before
         # the SEQ_STEPS checked steps warmed it up
         r["step_ms"] = cuda_time(lambda: tr.step(mode, batch, 0), 2, warmup=0)
         flat = torch.ones(sum(p.numel() for p in st.params) + 1, device=dev)
@@ -4638,26 +4880,27 @@ def seq_worker(out_dir, root, backend="gloo"):
     dist.destroy_process_group()
 
 
-def first_gradients(st):
+def step_gradients(st, steps=1):
     """Makes ``st`` (a NetState) keep, on the host, the reduced gradients of
-    its first step; returns the list they land in."""
+    its first ``steps`` steps; returns the list of each step's list."""
     kept, gradients = [], st.gradients
 
     def keeping(loss):
         grads, finite = gradients(loss)
-        if not kept:
-            kept.extend(g.detach().cpu() for g in grads)
+        if len(kept) < steps:
+            kept.append([g.detach().cpu() for g in grads])
         return grads, finite
 
     st.gradients = keeping
     return kept
 
 
-def seq_world1(dev, root, net, lvd_dir, timed=True, batch=SEQ_BATCH):
+def seq_world1(dev, root, net, lvd_dir, forced, batch=SEQ_BATCH):
     """World 1 in this process at B = ``batch`` (None: the script's):
-    SEQ_STEPS steps of the ranks' trainer on the whole fixed batch, then
-    (``timed``) the step timed. Returns ((losses, parameters), the first
-    step's gradients, ms a step, peak GB)."""
+    SEQ_STEPS steps of the ranks' trainer on the whole fixed batch, each
+    from the grid's parameters before that step (``forced``, one list a
+    step), then the step timed. Returns ((losses, parameters after the last
+    step), each step's reduced gradients, ms a step, peak GB)."""
     import torch
     from waldo_tpu_torch.config import parse_cli
     from waldo_tpu_torch.parallel import BatchShard
@@ -4666,23 +4909,29 @@ def seq_world1(dev, root, net, lvd_dir, timed=True, batch=SEQ_BATCH):
     _, mode, key = next(m for m in SEQ_MODES if m[0] == net)
     cfg = parse_cli(seq_flags(root, net, lvd_dir, "--datetime", f"seq{net}w1", batch=batch))
     tr = Trainer(cfg, device=dev)
-    grads = first_gradients(tr.states[key])
+    st = tr.states[key]
+    grads = step_gradients(st, SEQ_STEPS)
     batch = tr._to_device(fixed_rows(cfg, BatchShard.whole(cfg.batch_size_vid)))
     torch.cuda.reset_peak_memory_stats()
-    losses = [float(tr.step(mode, batch, it)["loss"]) for it in range(SEQ_STEPS)]
+    losses = []
+    for it in range(SEQ_STEPS):
+        with torch.no_grad():
+            for p, q in zip(st.params, forced[it], strict=True):
+                p.copy_(q)
+        losses.append(float(tr.step(mode, batch, it)["loss"]))
     peak = torch.cuda.max_memory_allocated() / 1e9
-    params = [p.detach().cpu() for p in tr.states[key].params]
-    ms = cuda_time(lambda: tr.step(mode, batch, 0), 3, warmup=1) if timed else None
-    del tr, batch
+    params = [p.detach().cpu() for p in st.params]
+    ms = cuda_time(lambda: tr.step(mode, batch, 0), 3, warmup=1)
+    del tr, st, batch
     torch.cuda.empty_cache()
     return (losses, params), grads, ms, peak
 
 
 def gradients_close(got, want, names, label):
-    """The first step's reduced gradients against world 1's, per leaf: within
-    1e-4 x the leaf's largest plus 1e-7 x the largest of all leaves
-    (tests/test_torch_distributed.py's tolerance). Returns the worst leaf's
-    error over its largest."""
+    """A step's reduced gradients against world 1's from the same
+    parameters, per leaf: within 1e-4 x the leaf's largest plus 1e-7 x the
+    largest of all leaves (tests/test_torch_distributed.py's tolerance).
+    Returns the worst leaf's error over its largest."""
     top = max(float(w.abs().max()) for w in want)
     worst, bad = (0.0, None), []
     for name, g, w in zip(names, got, want):
@@ -4691,7 +4940,7 @@ def gradients_close(got, want, names, label):
             worst = (err / scale, name)
         if err > 1e-4 * scale + 1e-7 * top:
             bad.append((name, err, scale))
-    log(f"{label}: the first step's reduced gradients against world 1's: the worst leaf "
+    log(f"{label}: the reduced gradients against world 1's: the worst leaf "
         f"{worst[1]} at {worst[0]:.3g} of its largest (tol 1e-4, plus 1e-7 x {top:.3g})")
     check(not bad, f"{label}: gradients off world 1's: {bad[:8]}")
     return worst[0]
@@ -4831,13 +5080,18 @@ def mat_options_check(dev):
             "layer_calls": card_calls}
 
 
-def seq_against_world1(dev, root, got, net, label, batch, spread=None):
+def seq_against_world1(dev, root, got, net, label, batch):
     """One net's run on the grid (``got``, seq_worker's file) against world
-    1 in this process at B = ``batch``: the ranks' grid coordinates, strict
-    launches and token shards a step, the first step's reduced gradients,
-    the losses and the parameters after SEQ_STEPS Adam steps, the latter
-    within twice the card's own spread (``spread``, else world 1 run twice
-    here). Returns compare_ranks' results with world 1's step and peak."""
+    1 in this process at B = ``batch``, each step of world 1 taken from the
+    grid's parameters before it: the ranks' grid coordinates, strict
+    launches and token shards a step, each step's reduced gradients per
+    leaf, the losses, and the parameters after the last step within one
+    Adam step of world 1's. A free-running world 1 drifts from the grid at
+    step 2 on: both sum their gradients in other orders, and Adam turns
+    the last bits of a gradient near 0 into a step of about lr, so after
+    three steps a share of 0.06-0.69 of a tensor's elements sat over 2e-6
+    from world 1 run twice. Returns compare_ranks' results with world 1's
+    step and peak."""
     ranks = [r[net] for r in got["ranks"]]
     s_world = ranks[0]["grid"][3]
     check([r["grid"] for r in ranks] == [[i // s_world, len(ranks) // s_world, i % s_world,
@@ -4854,36 +5108,29 @@ def seq_against_world1(dev, root, got, net, label, batch, spread=None):
               and (net == "lvd") == ("PoseEncoder" not in {m for m, _, _ in sites}),
               f"{label}: token shards {sites}")
     t0 = time.perf_counter()
-    w, w_grads, w_ms, w_peak = seq_world1(dev, root, net, got["lvd_dir"], batch=batch)
-    log(f"{label} world 1 in this process: {time.perf_counter() - t0:.1f} s, losses "
-        f"{['%.6f' % v for v in w[0]]}, a step {w_ms:.2f} ms, peak {w_peak:.2f} GB")
+    w, w_grads, w_ms, w_peak = seq_world1(dev, root, net, got["lvd_dir"],
+                                          got["params"][f"{net}_before"], batch=batch)
+    log(f"{label} world 1 in this process, from the grid's parameters at each step: "
+        f"{time.perf_counter() - t0:.1f} s, losses {['%.6f' % v for v in w[0]]}, a step "
+        f"{w_ms:.2f} ms, peak {w_peak:.2f} GB")
     names = got["params"][f"{net}_names"]
-    grad_err = gradients_close(got["params"][f"{net}_grads"], w_grads, names, label)
-    if spread is None:
-        # world 1 again: the card's own spread after SEQ_STEPS Adam steps (the
-        # backward kernels' and cuDNN's atomics sum in no fixed order)
-        w2, *_ = seq_world1(dev, root, net, got["lvd_dir"], timed=False, batch=batch)
-        spread = compare_ranks({"equal": [True] * SEQ_STEPS, "params": w2[1], "names": names,
-                                "ranks": [{"rank": 0, "device": str(dev), "losses": w2[0],
-                                           "peak_gb": w_peak, "step_ms": w_ms,
-                                           "all_reduce_ms": 0.0}],
-                                "all_reduce_bytes": 0}, w, f"{label} world 1 twice",
-                               steps=SEQ_STEPS, strict=False)
+    check(len(w_grads) == len(got["params"][f"{net}_grads"]) == SEQ_STEPS,
+          f"{label}: gradients of {len(w_grads)} steps kept")
+    grad_err = [gradients_close(g, wg, names, f"{label} step {it}")
+                for it, (g, wg) in enumerate(zip(got["params"][f"{net}_grads"], w_grads))]
     r0 = ranks[0]
     log(f"{label} token shards a step (stack, tokens, S): {r0['sites'][0]}; bytes through the "
         f"collectives a step and rank: {r0['bytes'][-1]}; launches a step {r0['launches'][-1]}")
     cmp = compare_ranks({"equal": [all(e) for e in zip(*[r["equal"] for r in ranks])],
                          "ranks": ranks, "params": got["params"][net], "names": names,
                          "all_reduce_bytes": r0["all_reduce_bytes"]},
-                        w, f"{label} grid", steps=SEQ_STEPS, strict=False)
+                        w, f"{label} grid", steps=SEQ_STEPS)
     log(f"{label}: a step {[round(r['step_ms'], 2) for r in ranks]} ms on the ranks against "
         f"world 1's {w_ms:.2f} ms; peak {[round(r['peak_gb'], 2) for r in ranks]} GB a rank "
         f"against world 1's {w_peak:.2f} GB")
-    check(max(cmp["loss_rel_err"]) <= 2e-4 and cmp["param_max_err"] <= 2e-4 * SEQ_STEPS
-          and cmp["param_share_over_2e6"] <= max(1e-3, 2 * spread["param_share_over_2e6"]),
-          f"{label}: the grid is further from world 1 than the card's own spread")
-    return dict(cmp, world1_ms=w_ms, world1_peak_gb=w_peak, grad_err=grad_err,
-                world1_spread=spread)
+    # both took the last step from the same parameters
+    within_adam_bound(cmp, f"{label} grid", 1)
+    return dict(cmp, grad_err=grad_err, world1_ms=w_ms, world1_peak_gb=w_peak)
 
 
 def phase_seq(dev, card_name, root):
@@ -4922,8 +5169,7 @@ def phase_seq(dev, card_name, root):
         got = torch.load(os.path.join(out_dir, "seq_nccl.pt"), weights_only=False)
         log(f"(c) NCCL over {got['world']} cards ({secs:.1f} s), a {got['world'] // 2} x 2 grid "
             f"at B = {batch}")
-        res["nccl_cards"] = seq_against_world1(dev, root, got, "lvd", "(c) LVD over cards", None,
-                                               spread=res["lvd"]["world1_spread"])
+        res["nccl_cards"] = seq_against_world1(dev, root, got, "lvd", "(c) LVD over cards", None)
         res["nccl_cards"]["seconds"] = secs
     else:
         log(f"(c) NCCL over several cards: not run (this machine has {n} card"
@@ -4935,6 +5181,425 @@ def phase_seq(dev, card_name, root):
     res["seconds"] = time.perf_counter() - t_phase
     log(f"phase 14 took {res['seconds']:.1f} s")
     return res
+
+
+# ---------------------------------------------------------------------------
+# the KITTI family (phase 15)
+# ---------------------------------------------------------------------------
+
+KITTI = "scripts/kitti"
+# training sequences of 20 frames, one 20-frame chunk each: the first 10 %
+# of the sequences are the valid split (data/kitti.py), 9 chunks train
+KITTI_TRAIN_SEQS = (10, 20)
+KITTI_TEST_SEQS = (3, 12)  # a 12-frame test sequence gives one 10-frame window
+KITTI_MAT_CLIPS = 2  # test_mat.sh clips
+KITTI_ROWS = (40, 24)  # the fused warp's and K2's rows a predict: 4 x 10, 4 x 6
+
+
+def pc_bwd_row(card_name, inputs, n_launches, what):
+    """The K2' backward on the inputs a training step handed it (planes,
+    boxes, grids, grad_out as capture_pc_bwd_inputs copied them): against
+    the plain version's autograd (1e-4 x max|plain|), timed beside its bound
+    (grids read and grad_grid written, grad_out read, the planes read and
+    grad_img written) and ATen's backward on the channels folded. A sample
+    within 1e-4 of a pixel of a texel centre in x or y has a one-sided grid
+    derivative whose side follows the last bit of its pixel coordinate,
+    which the kernel and ATen round in other orders (ROADMAP.md section 3):
+    there each component of its grad_grid is held to the plain version's at
+    the sample, or at the sample moved 1e-3 of a pixel to either side along
+    that component (bilinear sampling is linear within a cell, so each side
+    gives its one-sided derivative exactly), and no sample may match none."""
+    import torch
+    from waldo_tpu_torch.ops.grid_sample import grid_sample_multigrid_plain
+    from waldo_tpu_torch.ops.kernels import grid_sample_per_channel_bwd_cuda
+
+    planes, boxes, grids, gout = inputs
+    f, c, h, w = planes.shape
+    tex = planes.permute(0, 2, 3, 1).contiguous().requires_grad_()
+    g_in = grids.clone().requires_grad_()
+    out = grid_sample_multigrid_plain(tex, g_in)
+    g_img, g_grid = grid_sample_per_channel_bwd_cuda(planes, boxes, grids, gout, True)
+    w_img, w_grid = torch.autograd.grad(out, [tex, g_in], gout, retain_graph=True)
+    px = (grids[..., 0] + 1) * (w / 2) - 0.5
+    py = (grids[..., 1] + 1) * (h / 2) - 0.5
+    on = [(px - px.round()).abs() < 1e-4, (py - py.round()).abs() < 1e-4]
+    lattice = on[0] | on[1]
+    del px, py
+    # each component's one-sided derivatives on the lattice
+    sides = []
+    for a, size in ((0, w), (1, h)):
+        for sign in (-1.0, 1.0):
+            g_side = grids.clone()
+            g_side[..., a] += on[a] * (sign * 2e-3 / size)
+            g_side.requires_grad_()
+            sides.append((a, torch.autograd.grad(grid_sample_multigrid_plain(tex, g_side),
+                                                 g_side, gout)[0][..., a]))
+            del g_side
+    err, tol = 0.0, {}
+    for got, want, name in ((g_img, w_img, "grad_img"), (g_grid, w_grid, "grad_grid")):
+        diff, scale = (got - want).abs(), float(want.abs().max())
+        tol[name] = TOL_F32 * max(scale, 1e-30)
+        if name == "grad_grid":
+            side_ok = [diff[..., a] <= tol[name] for a in (0, 1)]
+            for a, side in sides:
+                side_ok[a] |= (got[..., a] - side).abs() <= tol[name]
+            diff = diff.amax(-1)
+            ties = int((diff[lattice] > tol[name]).sum())
+            neither = int((lattice & ~(side_ok[0] & side_ok[1])).sum())
+            del sides, side_ok
+            diff = diff.masked_fill(lattice, 0.0)
+        e = float(diff.max())
+        if e > tol[name]:
+            i = [int(v) for v in torch.nonzero(diff == diff.max())[0]]
+            log(f"K2' backward {name}: the worst element {i}, kernel {float(got[tuple(i)].max())} "
+                f"plain {float(want[tuple(i)].max())}" + (f", grid {grids[tuple(i)].tolist()}"
+                                                          if name == "grad_grid" else ""))
+        check(bool(torch.isfinite(got).all()) and e <= tol[name],
+              f"K2' backward on {what}'s inputs, {name}: {e} > {TOL_F32} x {scale}")
+        err = max(err, e)
+    st = grad_out_stats(gout)
+    log(f"K2' backward on {what}'s inputs {tuple(gout.shape)}: max|err| {err:.3g} (tol "
+        f"{TOL_F32} x max|plain|); {float(lattice.float().mean()):.4g} of the samples on the "
+        f"pixel lattice, {ties} of their grad_grid beyond the tolerance at the sample, "
+        f"{neither} beyond it at either side; grad_out strides {st['stride']}, "
+        f"{st['zero_share']:.4g} of it 0")
+    check(neither == 0, f"K2' backward on {what}'s inputs: the grad_grid of {neither} samples "
+          f"on the pixel lattice matches neither one-sided derivative")
+    ho, wo = grids.shape[2:4]
+    tex_fold = tex.detach().permute(0, 3, 1, 2).reshape(f * c, 1, h, w).contiguous()
+    grids_fold = grids.reshape(f * c, ho, wo, 2)
+    gout_fold = gout.permute(0, 3, 1, 2).reshape(f * c, 1, ho, wo)
+    aten_bwd = torch.ops.aten.grid_sampler_2d_backward
+    n_s = f * c * ho * wo
+    b = bound(card_name, 2 * 8 * n_s + 4 * n_s + 2 * 4 * f * h * w * c, 40 * n_s)
+    row = {"name": f"grid_sample_per_channel_bwd {what} {f}x{h}x{w} C={c}", "route": "cuda",
+           "source": BWD_SOURCE, "replaces": K2PC_BWD_REPLACES, "launches": n_launches,
+           "max_abs_err": err,
+           "ms": cuda_time(lambda: grid_sample_per_channel_bwd_cuda(planes, boxes, grids, gout,
+                                                                    True), 10),
+           "plain_ms": cuda_time(lambda: torch.autograd.grad(out, [tex, g_in], gout,
+                                                             retain_graph=True), 3),
+           "bound_ms": b[0], "bound_by": b[1],
+           "library_ms": cuda_time(lambda: aten_bwd(gout_fold, tex_fold, grids_fold, 0, 0, False,
+                                                    [True, True]), 10),
+           "grad_out": st, "lattice_share": float(lattice.float().mean()),
+           "lattice_grad_grid_beyond_tol": ties, "lattice_grad_grid_beyond_both_sides": neither}
+    del tex, g_in, out, g_img, g_grid, w_img, w_grid, tex_fold, lattice
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_train_launches(label, launches, by_key, n, rows, backward):
+    """n training steps' strict launch counts: K2' (with ``backward`` its
+    backward too), K2's batch mode and the pre-pass once a step, the samples
+    at ``rows`` rows, no other kernel."""
+    want = {"warp_alpha_ctx": 0, "grid_sample": n, "grid_sample_per_channel": n,
+            "grid_sample_bwd": 0, "grid_sample_per_channel_bwd": n if backward else 0,
+            "bias_act": 0, "plane_boxes": n}
+    check(launches == want and by_key["grid_sample"] == {rows: n}
+          and by_key["grid_sample_per_channel"] == {rows: n},
+          f"{label}: expected {want} at {rows} rows, got {launches} by key {by_key}")
+
+
+def step_kernel_rows(card_name, tr, mode, batch, launches, what, backward):
+    """The samples of one training step at KITTI's shapes, on the inputs the
+    step handed them: K2' and K2's batch mode (wif_kernel_rows), the
+    pre-pass on K2''s texture and, with ``backward``, the K2' backward
+    (pc_bwd_row); each against its plain version, timed beside its bound."""
+    import torch
+
+    pc_inputs, batch_inputs = capture_wif_sample_inputs(tr, mode, batch)
+    bwd_inputs = capture_pc_bwd_inputs(tr, mode, batch) if backward else None
+    tex = pc_inputs[0]
+    rows = [plane_boxes_row(card_name, f"plane_boxes {what} {'x'.join(map(str, tex.shape))}",
+                            tex, launches["plane_boxes"])]
+    rows += wif_kernel_rows(card_name, launches, pc_inputs, batch_inputs, what)
+    del pc_inputs, batch_inputs, tex
+    if backward:
+        rows.append(pc_bwd_row(card_name, bwd_inputs, launches["grid_sample_per_channel_bwd"],
+                               what))
+    del bwd_inputs
+    torch.cuda.empty_cache()
+    log_rows([rows[0]] + rows[3:])  # wif_kernel_rows logged its two
+    return rows
+
+
+def kitti_train(dev, card_name, root, data_root, lpips_dir, profile_dir=None):
+    """(b) scripts/kitti/train_lvd.sh, train_flp.sh and train_wif.sh in turn
+    on the tree, their flags parsed by parse_cli, each Trainer.run for
+    TRAIN_ITERS iterations (strict launch counts, finite losses, no skipped
+    step, the parameters moved, the latest slots restored equal), its steps
+    timed on one fixed batch with the peak memory, and its samples' kernels
+    on the inputs a step hands them. Returns (results, rows, the runs'
+    checkpoint dirs). Under --profile one step of each is traced."""
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+    from waldo_tpu_torch.data import create_dataset
+    from waldo_tpu_torch.train import Trainer
+
+    res, rows, runs = {}, [], {}
+    n = TRAIN_ITERS
+    common = ["--data.dataroot", data_root, "--save_path", root, "--datetime", "kitti"]
+
+    # LVD: train_lvd.sh, B=8 clips of 10 frames at 128x416
+    mode = "vid_object_extractor"
+    cfg = parse_cli(train_lvd_flags(f"{KITTI}/train_lvd.sh") + common)
+    m = cfg.model
+    shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.width_size, m.embed_dim,
+             m.num_obj, cfg.data.num_lyt, m.latent_shape, cfg.data.dataset, cfg.data.load_all)
+    log(f"-- KITTI LVD (train_lvd.sh): (B, T, H, W, embed, objects, classes, latent, dataset, "
+        f"load_all) {shape}; losses {m.vid_object_extractor_losses}")
+    check(shape == (8, 10, 128, 416, 512, 16, 19, (8, 26), "kitti", True),
+          "the parsed KITTI train_lvd.sh config is not the expected one")
+    chunks = {ph: len(create_dataset(cfg, phase=ph)) for ph in ("train", "valid")}
+    log(f"KITTI LVD: 20-frame chunks {chunks} (the first 10 % of the sequences are valid)")
+    check(chunks["train"] >= cfg.batch_size_vid and chunks["valid"] > 0,
+          f"the tree's chunks {chunks} do not make a training batch of {cfg.batch_size_vid}")
+    tr = Trainer(cfg, device=dev)
+    run_s, launches, by_key = run_and_check(tr, {"pe": "lvd"}, n, "KITTI LVD")
+    check_train_launches("KITTI LVD", launches, by_key, n, cfg.batch_size_vid * cfg.data.vid_len,
+                         backward=True)
+    batch, r = time_steps(tr, mode, "kitti_lvd", profile_dir)
+    check(all(v == (0 if k in ("warp_alpha_ctx", "bias_act", "grid_sample_bwd") else 1)
+              for k, v in r["launches_per_step"].items()),
+          f"KITTI LVD: launches in one step {r['launches_per_step']}")
+    rows += step_kernel_rows(card_name, tr, mode, batch, launches, "KITTI LVD step", True)
+    res["lvd"] = dict(r, run_seconds=run_s, launches_run=launches)
+    runs["lvd"] = cfg.checkpoint_path
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # FLP: train_flp.sh from the LVD run, B=4
+    cfg = parse_cli(train_lvd_flags(f"{KITTI}/train_flp.sh") + common
+                    + ["--s_load_path", runs["lvd"]])
+    m = cfg.model
+    shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.width_size, m.pg_num_timesteps,
+             m.oe_num_timesteps, m.ctx_len)
+    log(f"-- KITTI FLP (train_flp.sh): (B, T, W, pg/oe timesteps, ctx) {shape}")
+    check(shape == (4, 10, 416, 10, 5, 4) and m.load_path == runs["lvd"]
+          and cfg.vid_modes == ["vid_pose_generator"],
+          "the parsed KITTI train_flp.sh config is not the expected one")
+    tr = Trainer(cfg, device=dev)
+    check(restored_equal(tr, runs["lvd"]), "KITTI FLP: the teacher did not restore equal")
+    run_s, launches, _ = run_and_check(tr, {"pg": "flp"}, n, "KITTI FLP")
+    check(not any(launches.values()), f"the KITTI FLP path launched a kernel: {launches}")
+    batch, r = time_steps(tr, "vid_pose_generator", "kitti_flp", profile_dir)
+    check(not any(r["launches_per_step"].values()), "a KITTI FLP step launched a kernel")
+    res["flp"] = dict(r, run_seconds=run_s, launches_run=launches)
+    runs["flp"] = cfg.checkpoint_path
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # WIF: train_wif.sh from the LVD run, B=8 x 5 frames of 256x832 from 10
+    # loaded with load_n_plus_1, seeded random VGG16 LPIPS weights
+    mode = "vid_inpainting"
+    cfg = parse_cli(train_lvd_flags(f"{KITTI}/train_wif.sh") + common
+                    + ["--s_load_path", runs["lvd"]])
+    m, d = cfg.model, cfg.data
+    shape = (cfg.batch_size_vid, d.vid_len, d.load_vid_len, d.load_n_plus_1, cfg.load_dim,
+             int(cfg.load_dim * cfg.aspect_ratio), cfg.flow_dim, m.ii_depth)
+    log(f"-- KITTI WIF (train_wif.sh): (B, T, loaded T, n+1, load, width, flow_dim, ii depth) "
+        f"{shape}; losses {m.vid_inpainting_losses}")
+    check(shape == (8, 5, 10, True, 256, 832, 128, 6) and m.load_path == runs["lvd"]
+          and m.vid_inpainting_losses == ["sharp_vid", "lpips_vid"],
+          "the parsed KITTI train_wif.sh config is not the expected one")
+    old_env = os.environ.get("WALDO_LPIPS_WEIGHTS")
+    os.environ["WALDO_LPIPS_WEIGHTS"] = lpips_dir
+    try:
+        tr = Trainer(cfg, device=dev)
+    finally:
+        if old_env is None:
+            os.environ.pop("WALDO_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["WALDO_LPIPS_WEIGHTS"] = old_env
+    check(tr.syn.lpips is not None, "KITTI WIF: LPIPS not loaded")
+    check(restored_equal(tr, runs["lvd"]), "KITTI WIF: the teacher did not restore equal")
+    run_s, launches, by_key = run_and_check(tr, {"ii": "wif"}, n, "KITTI WIF")
+    check_train_launches("KITTI WIF", launches, by_key, n, cfg.batch_size_vid * m.ctx_len,
+                         backward=False)
+    batch, r = time_steps(tr, mode, "kitti_wif", profile_dir)
+    check("lpips_vid" in r["metrics"] and all(
+        v == (1 if k in ("grid_sample", "grid_sample_per_channel", "plane_boxes") else 0)
+        for k, v in r["launches_per_step"].items()),
+        f"KITTI WIF: one step's metrics {sorted(r['metrics'])}, launches "
+        f"{r['launches_per_step']}")
+    rows += step_kernel_rows(card_name, tr, mode, batch, launches, "KITTI WIF decode", False)
+    res["wif"] = dict(r, run_seconds=run_s, launches_run=launches)
+    runs["wif"] = cfg.checkpoint_path
+    del tr, batch
+    torch.cuda.empty_cache()
+    return res, rows, runs
+
+
+def mat_forward_bias_acts(dev):
+    """bias_act launches in one MAT Generator forward at 512 (seeded random
+    weights): what every MAT forward of the MAT scripts launches."""
+    import torch
+    from waldo_tpu_torch.models.mat import MatInpainter
+    from waldo_tpu_torch.ops.kernels import BIAS_ACT, reset_launches
+
+    inp = MatInpainter(None, resolution=512, device=dev)
+    with torch.inference_mode():
+        reset_launches()
+        inp._apply(torch.zeros(1, 512, 512, 3, device=dev), torch.ones(1, 512, 512, 1, device=dev),
+                   inp._next_z(1))
+        torch.cuda.synchronize()
+    n = BIAS_ACT.launches
+    del inp
+    torch.cuda.empty_cache()
+    return n
+
+
+def small_kitti_predict_check(dev):
+    """A small float32 predict at KITTI's geometry on the card against the
+    same predict on the CPU (the same seeded weights and batch), held by
+    steep_check at 1e-3."""
+    from waldo_tpu_torch.models import Synthesizer
+
+    cfg = small_kitti_cfg()
+    gpu = Synthesizer(cfg, device=dev, seed=1)
+    cpu = Synthesizer(cfg, device="cpu", seed=1)
+    b_cpu = {k: v.cpu() for k, v in flagship_batch(cfg, "cpu", seed=1).items()}
+    want = cpu.predict(b_cpu)
+    got = gpu.predict({k: v.to(dev) for k, v in b_cpu.items()})
+    res = {}
+    for k in ("rec_vid", "inp_rec_vid", "pred_vid", "inp_pred_vid", "pred_flow"):
+        res[k] = steep_check(got[k].cpu(), want[k], 1e-3, f"small KITTI predict {k}")
+    log(f"small float32 KITTI predict (32x104, latent 4x13), card vs CPU: (max|err|, share "
+        f"beyond 1e-3) {res} (at most {STEEP_SHARE} beyond, all within {STEEP_ATOL})")
+    return res
+
+
+def phase_kitti(dev, card_name, root, cs_runs=None, profile_dir=None):
+    """The KITTI family (scripts/kitti/) through the port's entry points at
+    the scripts' widths: (a) a KITTI-format tree (write_kitti_tree); (b)
+    train_lvd.sh, train_flp.sh and train_wif.sh on it (kitti_train); (c)
+    test.sh through the test CLI from (b)'s runs (strict launch counts at
+    N=40 and 24, the slots restored equal, the dumps, the metrics CLI, ms
+    per predict and per evaluator iteration), K1 with its mask, K2 and the
+    pre-pass at 256x832 against their plain versions and timed, a small
+    float32 predict and evaluator card vs CPU, then test_mat.sh with seeded
+    random MAT weights (three MAT forwards a frame on its non-square path,
+    K2's batch mode on the MAT warps in its envelope); (d) the two demo.sh
+    scripts, the Cityscapes one from phases 7-9's runs (``cs_runs``; not run
+    without them), the KITTI one from (b)'s; (e) K2's edge cases at KITTI's
+    widths. Under --profile a step of each net and an evaluator iteration
+    of test.sh are traced."""
+    import torch
+    from waldo_tpu_torch.config import parse_cli
+
+    log("== 15. the KITTI family: train_lvd.sh, train_flp.sh, train_wif.sh on a KITTI-format "
+        "tree, test.sh and test_mat.sh at 256x832, the two demo.sh")
+    log(f"card: {card_name}")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = os.path.join(root, "kitti")
+    shutil.rmtree(root, ignore_errors=True)
+    res, rows = {}, []
+
+    # (a) the tree
+    data_root = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    write_kitti_tree(data_root, (128, 256), 128, {"train": KITTI_TRAIN_SEQS,
+                                                  "test": KITTI_TEST_SEQS})
+    res["tree_seconds"] = time.perf_counter() - t0
+    log(f"(a) wrote a KITTI-format tree in {res['tree_seconds']:.1f} s: {KITTI_TRAIN_SEQS[0]} "
+        f"training sequences of {KITTI_TRAIN_SEQS[1]} frames at 128x416 and 256x832, "
+        f"{KITTI_TEST_SEQS[0]} test sequences of {KITTI_TEST_SEQS[1]} frames, labels, flows at "
+        f"128x416")
+
+    # (b) the three training scripts
+    lpips_dir = os.path.join(root, "lpips")
+    write_random_lpips_vgg(os.path.join(lpips_dir, "lpips_vgg.npz"), seed=0)
+    t0 = time.perf_counter()
+    res["train"], train_rows, runs = kitti_train(dev, card_name, root, data_root, lpips_dir,
+                                                 profile_dir)
+    rows += train_rows
+    res["train_seconds"] = time.perf_counter() - t0
+
+    # (c) test.sh from (b)'s runs
+    t0 = time.perf_counter()
+    loads = ["--s_load_path", runs["lvd"], "--s_pg_load_path", runs["flp"],
+             "--s_ii_load_path", runs["wif"]]
+    flags = eval_script_flags(f"{KITTI}/test.sh") + [
+        "--data.dataroot", data_root, "--save_path", root, "--datetime", "kitti"] + loads
+    cfg = parse_cli(list(flags))
+    m = cfg.model
+    shape = (cfg.batch_size_vid, cfg.data.vid_len, cfg.dim, cfg.load_dim, cfg.true_dim,
+             cfg.flow_dim, int(cfg.load_dim * cfg.aspect_ratio), cfg.data.num_lyt, m.ctx_len,
+             m.pg_num_timesteps, cfg.data.skip_first)
+    log(f"(c) KITTI test.sh: (B, T, dim, load, true, flow, width, classes, ctx, pg timesteps, "
+        f"skip_first) {shape}; sample_precision {m.sample_precision!r}, restrict_to_ctx "
+        f"{m.restrict_to_ctx}")
+    check(shape == (1, 10, 128, 256, 256, 128, 832, 19, 4, 10, True) and m.restrict_to_ctx,
+          "the parsed KITTI test.sh config is not the expected one")
+    res["test_sh"], ev = test_cli_check(flags, cfg, runs, KITTI_TEST_SEQS[0], "KITTI test.sh",
+                                        KITTI_ROWS)
+    res["predict"], k1_seen, k2_seen = eval_predict(dev, ev, cfg, "KITTI test.sh", KITTI_ROWS,
+                                                    profile_dir, "_kitti_eval_iteration")
+    del ev
+    torch.cuda.empty_cache()
+    res["metrics_cli"] = metrics_cli_check(root, cfg)
+    t = res["test_sh"]
+    eval_rows, res["sample_shares"] = eval_kernel_rows(
+        dev, card_name, t["launches"], t["launches_by_key"], k1_seen, k2_seen, "KITTI test.sh",
+        256, 832, (10, 6), 22)
+    rows += eval_rows
+    res["small_predict"] = small_kitti_predict_check(dev)
+    res["small_eval"] = small_eval_check(dev, root, kitti=True)
+
+    # test_mat.sh: MAT at 512 with seeded random weights on 256x832 frames
+    mat_per_forward = mat_forward_bias_acts(dev)
+    mat_flags = eval_script_flags(f"{KITTI}/test_mat.sh") + [
+        "--data.dataroot", data_root, "--save_path", root, "--datetime", "kitti_mat",
+        "--s_inpainter_path", "", "--max_batch_eval_vid", str(KITTI_MAT_CLIPS)] + loads
+    cfg_mat = parse_cli(list(mat_flags))
+    check(cfg_mat.model.use_mat_inpainter and cfg_mat.load_dim == 256
+          and cfg_mat.max_batch_eval_vid == KITTI_MAT_CLIPS,
+          "the parsed KITTI test_mat.sh config is not the expected one")
+    res["test_mat_sh"], mat_inputs = test_mat_cli_check(mat_flags, cfg_mat, KITTI_MAT_CLIPS,
+                                                        mat_per_forward, "KITTI test_mat.sh",
+                                                        KITTI_ROWS)
+    mat_rows, res["test_mat_sh"]["mat_warps"] = mat_warp_rows(card_name, mat_inputs,
+                                                              "KITTI test_mat.sh")
+    rows += mat_rows
+    del mat_inputs
+    torch.cuda.empty_cache()
+    res["eval_seconds"] = time.perf_counter() - t0
+
+    # (d) the two demo.sh scripts, on trees under a path naming "demo" (the
+    # KITTI demo takes one clip, data/kitti.py)
+    t0 = time.perf_counter()
+    res["demo"] = {}
+    kitti_demo = os.path.join(root, "demo_kitti")
+    os.symlink(data_root, kitti_demo)
+    demos = [("kitti", f"{KITTI}/demo.sh", kitti_demo, runs, KITTI_ROWS)]
+    if cs_runs:
+        cs_demo = os.path.join(root, "demo_cityscapes")
+        write_cityscapes_tree(cs_demo, 512, 128, 1)
+        demos.insert(0, ("cityscapes", "scripts/cityscapes/demo.sh", cs_demo, cs_runs, (56, 40)))
+    else:
+        log("(d) scripts/cityscapes/demo.sh: not run (no Cityscapes training runs: phases 7-9 "
+            "run in the whole script)")
+    for name, script, demo_root, demo_runs, demo_rows in demos:
+        demo_flags = eval_script_flags(script) + [
+            "--data.dataroot", demo_root, "--save_path", root, "--datetime", f"demo_{name}",
+            "--s_inpainter_path", "", "--s_load_path", demo_runs["lvd"], "--s_pg_load_path",
+            demo_runs["flp"], "--s_ii_load_path", demo_runs["wif"]]
+        cfg_demo = parse_cli(list(demo_flags))
+        check(cfg_demo.data.dataset == name and cfg_demo.model.use_mat_inpainter
+              and cfg_demo.name == f"demo_{name}", f"the parsed {script} config")
+        res["demo"][name], _ = test_mat_cli_check(demo_flags, cfg_demo, 1, mat_per_forward,
+                                                  script, demo_rows)
+    res["demo_seconds"] = time.perf_counter() - t0
+
+    # (e) K2's edge cases at KITTI's widths
+    res["k2_edge_err"] = k2_edge_checks(dev, np.random.RandomState(15), K2_KITTI_EDGE_CASES)
+    shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 took {res['seconds']:.1f} s (training {res['train_seconds']:.1f}, test.sh and "
+        f"test_mat.sh {res['eval_seconds']:.1f}, demo.sh {res['demo_seconds']:.1f})")
+    return res, rows
 
 
 def gan_teacher(dev, root):
@@ -4960,8 +5625,9 @@ def main(argv=None):
                     help="only run phase 1 and then phase 3's flagship fused-warp cases REPS "
                          "times each, into outputs that start as NaN (k1_stress); the last "
                          "line is its JSON summary and the exit code 1 if any call failed")
-    ap.add_argument("--k1-cases", type=int, default=8,
-                    help="with --k1-stress, the first this many of the eight cases")
+    ap.add_argument("--k1-cases", type=int, default=12,
+                    help="with --k1-stress, the first this many of the twelve cases (eight "
+                         "flagship, four KITTI)")
     ap.add_argument("--k2-fwd", action="store_true",
                     help="only run phases 1 and 2 and then K2's forward at every row's shapes "
                          "on dense inputs (k2_fwd_study); the last line is its JSON summary")
@@ -4974,6 +5640,10 @@ def main(argv=None):
     ap.add_argument("--seq", action="store_true",
                     help="only run phases 1, 2 and 14 (sequence sharding, the VGG19 loss, "
                          "MAT's options); the last line is its JSON summary")
+    ap.add_argument("--kitti", action="store_true",
+                    help="only run phases 1, 2 and 15 (the KITTI family; its Cityscapes demo.sh "
+                         "needs phases 7-9's runs and is left out); the last line is its JSON "
+                         "summary")
     ap.add_argument("--dist-worker", choices=["nccl", "gloo", "nccl-cards", "seq", "seq-nccl"],
                     default=None,
                     help="run as one rank of phase 12 or 14 under torchrun (the phase starts "
@@ -5028,6 +5698,18 @@ def main(argv=None):
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"seq": jsonable(res)}), flush=True)
         return 0
+    if args.kitti:
+        try:
+            res, kitti_rows = phase_kitti(dev, name, root, profile_dir=args.profile)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(jsonable({"card": card_line, "kitti": res, "kernels": kitti_rows}), fh,
+                          indent=1)
+        print(json.dumps({"kitti": jsonable(res), "kernels": kitti_rows}), flush=True)
+        return 0
     if args.gan:
         shutil.rmtree(root, ignore_errors=True)
         try:
@@ -5065,6 +5747,8 @@ def main(argv=None):
         gan_res, gan_rows = phase_gan(dev, name, root, lvd_dir, args.profile)
         rows += gan_rows
         seq_res = phase_seq(dev, card_line, os.path.join(root, "seq"))
+        kitti_res, kitti_rows = phase_kitti(dev, name, root, runs, args.profile)
+        rows += kitti_rows
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"chip_smoke done in {time.perf_counter() - t_start:.1f} s")
@@ -5077,7 +5761,7 @@ def main(argv=None):
                                 "main": main_res, "mat": mat_res, "train": train_res,
                                 "flp": flp_res, "wif": wif_res, "eval": eval_res,
                                 "convert": convert_res, "dist": dist_res, "gan": gan_res,
-                                "seq": seq_res,
+                                "seq": seq_res, "kitti": kitti_res,
                                 "flagship_warp_inputs": zero_shares, "kernels": rows}),
                       fh, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -46,9 +46,13 @@ class KittiDataset(BaseVideoDataset):
                     start = k * n
                     new_vid.append(paths[start: start + n] if k < chunks - 1 else paths[start:])
         else:
+            # a test window holds vid_len frames after the one skip_first
+            # drops (the JAX package's hold vid_len in all, so that with
+            # skip_first, which the KITTI scripts set, no clip can be loaded)
+            n = d.vid_len + int(d.skip_first)
             for paths in vid_frame_paths:
                 for k in range(1, len(paths) - d.vid_len):
-                    new_vid.append(paths[k: k + d.vid_len])
+                    new_vid.append(paths[k: k + n])
         if "demo" in root:
             new_vid = new_vid[:1]
         return {"frame_paths": frame_paths, "vid_frame_paths": new_vid}
