@@ -154,14 +154,22 @@ class Evaluator:
         """One iteration on loader batch ``i`` (numpy arrays): its copy to the
         device, the predict, the metrics (appended to ``metrics``), the copy
         back and, with ``dump``, the dumps. Returns the host seconds of the
-        copy + predict + metrics + copy back and of the dumps."""
+        copy + predict + metrics + copy back and of the dumps.
+
+        Spans (``utils/profiling.annotate``): ``eval/predict`` around the
+        copies, the predict and the metrics, holding ``eval/copy_in``,
+        ``eval/metrics`` and ``eval/copy_out`` in that order (the predict
+        between the first two, under its nets' spans); ``eval/dump``."""
         t0 = time.perf_counter()
         with annotate("eval/predict"):
-            arrays = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                      for k, v in batch.items() if isinstance(v, np.ndarray)}
+            with annotate("eval/copy_in"):
+                arrays = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                          for k, v in batch.items() if isinstance(v, np.ndarray)}
             out_dev = self.predict(arrays)
-            self._accumulate_metrics(out_dev, metrics)
-            out = {k: v.float().cpu().numpy() for k, v in out_dev.items()}
+            with annotate("eval/metrics"):
+                self._accumulate_metrics(out_dev, metrics)
+            with annotate("eval/copy_out"):
+                out = {k: v.float().cpu().numpy() for k, v in out_dev.items()}
         del out_dev, arrays
         t1 = time.perf_counter()
         if dump:

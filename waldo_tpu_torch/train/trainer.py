@@ -52,6 +52,7 @@ from ..data import DataLoader, InfiniteLoader, create_dataset
 from ..models import Synthesizer
 from ..parallel import mesh
 from ..utils.heartbeat import beat
+from ..utils.profiling import annotate
 from .checkpoint import CheckpointManager, normalize_which
 from .logger import Logger
 from .train_state import NetState
@@ -158,12 +159,21 @@ class Trainer:
     def step(self, mode, batch, it):
         """One optimizer step of ``mode``'s net on a batch of device tensors
         (the rank's rows). Returns its metrics, the rank's, as 0-d device
-        tensors, with ``nancount``."""
+        tensors, with ``nancount``.
+
+        Spans (``utils/profiling.annotate``), once a step and in this order:
+        ``train/forward`` around the loss (the nets' and losses' own spans
+        inside it), ``train/backward`` around its backward and
+        ``train/optimizer`` around ``NetState.apply`` (the gradients, the
+        optional clip and Adam)."""
         state = self.states[MODE_TO_NET[mode]]
         state.zero_grad()
-        loss, metrics = self._loss(mode, batch, it, self.generator, train=True)
-        loss.backward()
-        state.apply(loss)
+        with annotate("train/forward"):
+            loss, metrics = self._loss(mode, batch, it, self.generator, train=True)
+        with annotate("train/backward"):
+            loss.backward()
+        with annotate("train/optimizer"):
+            state.apply(loss)
         metrics["nancount"] = state.nancount.clone()
         return metrics
 
@@ -199,7 +209,8 @@ class Trainer:
                 log = (cfg.log_freq and it % cfg.log_freq == 0) or it < 10 or (
                     it < 1000 and it % 100 == 0)
                 for mode in self._train_modes:
-                    batch = self._to_device(self.train_loader.next())
+                    with annotate("train/batch"):  # the loader's wait and the copy
+                        batch = self._to_device(self.train_loader.next())
                     metrics = self.step(mode, batch, it)
                     # nancount is read only now and then: a read waits for the
                     # card. It resets only on a finite step, so a run of

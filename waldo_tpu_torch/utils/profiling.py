@@ -17,7 +17,7 @@ import contextlib
 import os
 import subprocess
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -82,14 +82,3 @@ def provenance(**extra) -> Dict[str, object]:
     }
     stamp.update(extra)
     return stamp
-
-
-def log_memory(logger=None, step: Optional[int] = None, prefix: str = "mem"):
-    stats = memory_stats()
-    for dev, s in stats.items():
-        if logger is not None and step is not None:
-            logger.log_scalar(f"{prefix}/{dev}/in_use_gb", s["bytes_in_use_gb"], step)
-        else:
-            print(f"[{prefix}] {dev}: {s['bytes_in_use_gb']:.2f} GiB in use "
-                  f"(peak {s['peak_bytes_gb']:.2f} / limit {s['bytes_limit_gb']:.2f})")
-    return stats
