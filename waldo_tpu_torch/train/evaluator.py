@@ -36,6 +36,7 @@ from ..eval.metrics import psnr, ssim
 from ..models import Synthesizer
 from ..parallel import mesh
 from ..utils.heartbeat import beat
+from ..utils.host_copy import Staging, to_host
 from ..utils.profiling import annotate
 from .checkpoint import CheckpointManager, normalize_which
 
@@ -97,6 +98,7 @@ class Evaluator:
             from ..models.mat import MatInpainter
 
             self.inpainter = MatInpainter(m.inpainter_path, device=self.device, seed=cfg.seed)
+        self.staging = Staging()  # the batch's page-locked slots, reused clip to clip
         self.dump_format: Optional[str] = None
         # host seconds of each iteration of the last run: waiting on the
         # loader, the copy + predict + metrics + copy back (``step``), the
@@ -154,7 +156,10 @@ class Evaluator:
         """One iteration on loader batch ``i`` (numpy arrays): its copy to the
         device, the predict, the metrics (appended to ``metrics``), the copy
         back and, with ``dump``, the dumps. Returns the host seconds of the
-        copy + predict + metrics + copy back and of the dumps.
+        copy + predict + metrics + copy back and of the dumps. On a card both
+        copies go through page-locked memory (``utils/host_copy``): the batch
+        through the evaluator's two staging slots, the videos into blocks of
+        the caching host allocator, which the returned arrays hold.
 
         Spans (``utils/profiling.annotate``): ``eval/predict`` around the
         copies, the predict and the metrics, holding ``eval/copy_in``,
@@ -163,13 +168,13 @@ class Evaluator:
         t0 = time.perf_counter()
         with annotate("eval/predict"):
             with annotate("eval/copy_in"):
-                arrays = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                          for k, v in batch.items() if isinstance(v, np.ndarray)}
+                arrays = self.staging.to_device(
+                    {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}, self.device)
             out_dev = self.predict(arrays)
             with annotate("eval/metrics"):
                 self._accumulate_metrics(out_dev, metrics)
             with annotate("eval/copy_out"):
-                out = {k: v.float().cpu().numpy() for k, v in out_dev.items()}
+                out = to_host(out_dev, self.device)
         del out_dev, arrays
         t1 = time.perf_counter()
         if dump:
