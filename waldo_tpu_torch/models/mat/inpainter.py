@@ -5,8 +5,18 @@ Square inputs are resized to the net's resolution; other inputs are resized
 to resolution x 2*resolution and run as three overlapping crops, blended by
 triangular weights. ``mask`` is 1 where content must be synthesized (the net
 receives 1 - mask as its keep-mask). The net runs with truncation 0.5 and
-``noise_mode="const"``; each call draws its z from a ``torch.Generator`` on
-the inpainter's device.
+``noise_mode="const"``; each forward draws its z, (B, 512) normal, from
+``generator``, a ``torch.Generator`` on the inpainter's device that runs on
+from call to call. A caller replays the z of a run of calls by saving
+``generator.get_state()`` before them and handing that state to a generator
+on the same device kind that draws the same shapes in the same order (the
+benchmark's MAT cell keeps it at the start of each clip it checks, and its
+plain reference draws every z of that clip from it).
+
+Spans (``utils/profiling.annotate``): ``mat/generator`` around each forward,
+one per crop, holding the synthesis' ``mat/transformer`` and
+``mat/decoder``; ``calls`` counts the forwards, so it equals the number of
+``mat/generator`` spans.
 
 Weights: ``weights_path`` names a ``.npz`` in the JAX package's layout (a
 ``params`` entry holding the flax variables ``params``, ``noise_const`` and

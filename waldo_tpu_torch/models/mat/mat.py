@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.profiling import annotate
 from .basic import Conv2dLayer, FullyConnectedLayer, MappingNet, StyleConv, ToRGB
 
 
@@ -474,7 +475,13 @@ class FirstStage(nn.Module):
 
 class SynthesisNet(nn.Module):
     """Two-stage synthesis: the first stage's fill, then the conv encoder,
-    the 16x16 style blend and the style decoder."""
+    the 16x16 style blend and the style decoder.
+
+    Spans (``utils/profiling.annotate``), once each a forward:
+    ``mat/transformer`` around the first stage (its partial convolutions,
+    Swin stages, style tokens and first decoder) and ``mat/decoder`` around
+    the rest (the conv encoder, the style blend, the modulated decoder and
+    its toRGB layers)."""
 
     def __init__(self, w_dim=512, img_resolution=512, img_channels=3, use_noise=True,
                  demodulate=True):
@@ -492,21 +499,23 @@ class SynthesisNet(nn.Module):
                 return_stg1=False):
         """The inpainted images; with ``return_stg1`` also the first
         stage's."""
-        out_stg1 = self.first_stage(images_in, masks_in, ws, noise_mode, generator)
-        x = images_in * masks_in + out_stg1 * (1 - masks_in)
-        x = torch.cat([masks_in - 0.5, x, images_in * masks_in], dim=-1)
-        e_features = self.enc(x)
+        with annotate("mat/transformer"):
+            out_stg1 = self.first_stage(images_in, masks_in, ws, noise_mode, generator)
+        with annotate("mat/decoder"):
+            x = images_in * masks_in + out_stg1 * (1 - masks_in)
+            x = torch.cat([masks_in - 0.5, x, images_in * masks_in], dim=-1)
+            e_features = self.enc(x)
 
-        fea_16 = e_features[4]
-        mul_map = _mul_map(fea_16, noise_mode, generator)
-        # fea_16 is 16x16, so the JAX package's bilinear resize is the identity
-        add_n = self.to_square(ws[:, 0]).reshape(-1, 16, 16, 1)
-        fea_16 = fea_16 * mul_map + add_n * (1 - mul_map)
-        e_features[4] = fea_16
+            fea_16 = e_features[4]
+            mul_map = _mul_map(fea_16, noise_mode, generator)
+            # fea_16 is 16x16, so the JAX package's bilinear resize is the identity
+            add_n = self.to_square(ws[:, 0]).reshape(-1, 16, 16, 1)
+            fea_16 = fea_16 * mul_map + add_n * (1 - mul_map)
+            e_features[4] = fea_16
 
-        gs = self.to_style(fea_16)
-        img = self.dec(fea_16, ws, gs, e_features, noise_mode, generator)
-        img = img * (1 - masks_in) + images_in * masks_in
+            gs = self.to_style(fea_16)
+            img = self.dec(fea_16, ws, gs, e_features, noise_mode, generator)
+            img = img * (1 - masks_in) + images_in * masks_in
         if return_stg1:
             return img, out_stg1
         return img
@@ -516,7 +525,8 @@ class Generator(nn.Module):
     """Mapping + synthesis. images_in (B, R, R, 3) in [-1, 1], masks_in
     (B, R, R, 1) with 1 = keep, z (B, z_dim) -> (B, R, R, 3), and the first
     stage's (B, R, R, 3) with ``return_stg1``. ``truncation_cutoff`` and
-    ``update_w_avg`` go to the mapping (MappingNet)."""
+    ``update_w_avg`` go to the mapping (MappingNet). The synthesis opens the
+    spans ``mat/transformer`` and ``mat/decoder`` once each a forward."""
 
     def __init__(self, z_dim=512, w_dim=512, img_resolution=512, img_channels=3):
         super().__init__()
